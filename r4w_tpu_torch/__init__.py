@@ -1,0 +1,22 @@
+"""r4w_tpu_torch — the r4w_tpu waveform framework on PyTorch and CUDA.
+
+A port of the JAX package ``r4w_tpu`` to PyTorch, with its Pallas TPU
+kernels rewritten by hand for NVIDIA Hopper (sm_90a). The subpackages
+mirror ``r4w_tpu``'s layout. ``r4w_tpu`` stays the reference: the port is
+held against it on the same inputs, and never imports it or JAX.
+
+Ported so far: the LoRa loopback path (parameters, chirps, coding chain,
+AWGN, modem, Monte-Carlo sweeps, the `Waveform` factory) and its kernel,
+the fused dechirp + DFT power (`kernels.dechirp`).
+"""
+
+__version__ = "0.1.0"
+
+from r4w_tpu_torch.waveforms import WaveformFactory, create_waveform, list_waveforms
+
+__all__ = [
+    "WaveformFactory",
+    "list_waveforms",
+    "create_waveform",
+    "__version__",
+]

@@ -1,0 +1,49 @@
+"""Carry state across from the JAX package.
+
+The LoRa slice has no weights; its state is the parameter set and the
+constant tables. `params_from_reference` reads an ``r4w_tpu`` parameter
+set by its dataclass fields (duck-typed, so JAX is never imported), and
+`tables_numpy` hands the port's tables back as numpy so they can be held
+against the reference's own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from r4w_tpu_torch.kernels import dechirp
+from r4w_tpu_torch.ops import coding
+from r4w_tpu_torch.waveforms.lora import chirp
+from r4w_tpu_torch.waveforms.lora.params import LoRaParams
+
+WHITENING_BYTES = 255  # the longest LoRa payload
+
+
+def params_from_reference(p) -> LoRaParams:
+    """An ``r4w_tpu`` `LoRaParams` (or anything with its fields) -> the port's."""
+    return LoRaParams(**{f.name: getattr(p, f.name) for f in dataclasses.fields(LoRaParams)})
+
+
+def tables_numpy(params: LoRaParams) -> dict[str, np.ndarray]:
+    """The port's constant tables for `params`, as the CPU caches hold them.
+
+    Keys: ``upchirp`` and ``downchirp`` (reference: ``_base_chirps_np``),
+    ``hamming_encode`` and ``hamming_decode`` (``_hamming_tables``),
+    ``whitening`` (``_whitening_sequence(255)``) and ``twiddle``, the
+    (K,) table whose entry (n·b) mod K is ``_dft_mats(K)``'s entry (n, b).
+    """
+    device = torch.device("cpu")
+    up, down = chirp._base_chirps(params.sf, params.bw_hz, params.oversample, device)
+    enc, dec = coding._hamming_luts(params.cr, device)
+    tables = {
+        "upchirp": up,
+        "downchirp": down,
+        "hamming_encode": enc,
+        "hamming_decode": dec,
+        "whitening": coding.whitening_sequence(WHITENING_BYTES, device),
+        "twiddle": dechirp._twiddle(params.chips_per_symbol, device),
+    }
+    return {name: t.numpy() for name, t in tables.items()}

@@ -1,0 +1,59 @@
+"""Core types and dtype policy.
+
+PyTorch counterpart of ``r4w_tpu.core.types``: IQ samples are
+``complex64`` tensors (batch-first blocks), symbols are ``int32``
+tensors, and errors are Python exceptions raised on the host before any
+kernel runs. Complex tensors move between devices with ``.to(device)``;
+nothing here splits them into real planes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Dtype policy ---------------------------------------------------------------
+IQ_DTYPE = torch.complex64
+REAL_DTYPE = torch.float32
+SYMBOL_DTYPE = torch.int32
+
+
+class DspError(Exception):
+    """Base error for DSP parameter/shape problems."""
+
+
+class InvalidParameter(DspError):
+    pass
+
+
+class BufferTooShort(DspError):
+    def __init__(self, expected: int, actual: int):
+        super().__init__(f"buffer too short: expected {expected}, got {actual}")
+        self.expected = expected
+        self.actual = actual
+
+
+@dataclasses.dataclass(frozen=True)
+class CommonParams:
+    """Common waveform parameters."""
+
+    sample_rate: float = 125_000.0
+    carrier_freq: float = 0.0
+    amplitude: float = 1.0
+
+
+def db_to_linear_power(db, device=None) -> torch.Tensor:
+    return 10.0 ** (torch.as_tensor(db, dtype=REAL_DTYPE, device=device) / 10.0)
+
+
+def db_to_linear_amplitude(db, device=None) -> torch.Tensor:
+    return 10.0 ** (torch.as_tensor(db, dtype=REAL_DTYPE, device=device) / 20.0)
+
+
+def linear_power_to_db(p, device=None) -> torch.Tensor:
+    return 10.0 * torch.log10(torch.as_tensor(p, dtype=REAL_DTYPE, device=device))
+
+
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()

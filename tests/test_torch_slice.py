@@ -1,0 +1,138 @@
+"""The port's LoRa loopback slice, end to end, against ``r4w_tpu``.
+
+The loopback BER grid must equal JAX's exactly when JAX's own noise is
+injected; the Waveform factory, the Monte-Carlo helpers and the entry
+points run on the CPU at small sizes. The full-size sweep runs only on a
+card, through chip_smoke.py.
+"""
+
+import functools
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from r4w_tpu.channel import channel as ref_channel
+from r4w_tpu.waveforms import create_waveform as ref_create_waveform
+from r4w_tpu.waveforms import lora as ref_lora
+from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
+from r4w_tpu_torch.channel import awgn
+from r4w_tpu_torch.entry import entry, lora_sweep, sweep_lanes, waterfall_snr_db
+from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, monte_carlo_ber
+from r4w_tpu_torch.waveforms import lora
+
+REPO = Path(__file__).resolve().parents[1]
+SNRS_DB = np.array([-12.0, -8.0, -4.0, 0.0], np.float32)
+
+
+def test_loopback_ber_matches_reference_with_its_noise():
+    """SF7, 8 keys × 4 SNRs. JAX's grid reuses each key's noise at every
+    SNR, so the port gets that noise broadcast over the SNR axis."""
+    params, rparams = lora.LoRaParams(sf=7), ref_lora.LoRaParams(sf=7)
+    payload = np.random.default_rng(0).integers(0, 256, 16).astype(np.int32)
+    keys = jax.random.split(jax.random.key(42), 8)
+    grid = jax.jit(jax.vmap(lambda k: jax.vmap(
+        lambda s: ref_lora.loopback_ber(rparams, jnp.asarray(payload), k, s))(
+            jnp.asarray(SNRS_DB))))
+    want = np.asarray(grid(keys))
+    n = params.n_payload_symbols(16) * params.samples_per_symbol
+    noise = np.stack([np.asarray(ref_channel._complex_normal(k, (n,), 1.0)) for k in keys])
+    got = lora.loopback_ber(params, torch.from_numpy(payload),
+                            torch.from_numpy(SNRS_DB).expand(8, -1),
+                            noise=torch.from_numpy(noise)[:, None, :])
+    assert got.shape == (8, 4) and got.dtype == torch.float32
+    assert 0.0 < want.mean() < 1.0  # the grid spans errors and clean decodes
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_quick_start_roundtrip():
+    wf = create_waveform("LoRa-SF7", 125_000.0)
+    tx = wf.modulate(b"hello")
+    np.testing.assert_array_equal(
+        tx.numpy(), np.asarray(ref_create_waveform("LoRa-SF7", 125_000.0).modulate(b"hello")))
+    rx = awgn(tx, -2.0, generator=torch.Generator().manual_seed(0))
+    res = wf.demodulate(rx)
+    assert bytes(res.bits[:5].numpy().astype(np.uint8)) == b"hello"
+    assert res.snr_estimate > 10.0 and np.isfinite(res.metadata["rssi"])
+    assert wf.samples_per_symbol() == 128 and wf.info().bits_per_symbol == 7
+
+
+def test_factory_names_aliases_and_unknowns():
+    assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12"]
+    assert WaveformFactory.list() == list_waveforms()
+    assert WaveformFactory.create("css").params.sf == 7
+    assert create_waveform("lora_sf12").params.sf == 12
+    assert create_waveform("LoRa", device="cpu").device == torch.device("cpu")
+    assert create_waveform("QPSK") is None
+    assert create_waveform("GPS-L1CA-PRN5") is None  # until the GNSS port lands
+
+
+def test_waveform_educational_defaults():
+    wf = create_waveform("LoRa")
+    stages = wf.get_modulation_stages(b"\x01")
+    assert [name for name, _ in stages] == ["input bits", "modulated IQ"]
+    assert wf.get_visualization(b"\x01")["constellation"].numel() == 0
+    assert wf.generate_demo(duration_ms=2.0).shape == (250,)
+    steps = wf.get_demodulation_steps(wf.modulate(b"\x5a"))
+    assert int(steps[2][1][0]) == 0x5A
+
+
+def test_batch_helpers_equal_single_calls():
+    params = lora.LoRaParams(sf=8)
+    payloads = torch.tensor([[1, 2, 3], [200, 100, 50]], dtype=torch.int32)
+    tx = batch_modulate(functools.partial(lora.modulate, params, include_preamble=False),
+                        payloads)
+    for row, payload in zip(tx, payloads):
+        assert torch.equal(row, lora.modulate(params, payload, include_preamble=False))
+    res = batch_demodulate(functools.partial(lora.demodulate, params), tx)
+    assert torch.equal(res.payload[:, :3], payloads)
+
+
+def test_monte_carlo_grid_and_ber_sweep():
+    params = lora.LoRaParams(sf=7)
+    payload = torch.arange(16, dtype=torch.int32)
+    ber_fn = functools.partial(lora.loopback_ber, params)
+    grid = monte_carlo_ber(lambda snr, gen: ber_fn(payload, snr, generator=gen), 6,
+                           [-20.0, 0.0], generator=torch.Generator().manual_seed(1))
+    assert grid.shape == (6, 2)
+    assert float(grid[:, 1].max()) == 0.0 and float(grid[:, 0].mean()) > 0.1
+    a = ber_sweep(ber_fn, payload, [-20.0, -10.0, 0.0], n_lanes=6, seed=3)
+    b = ber_sweep(ber_fn, payload, [-20.0, -10.0, 0.0], n_lanes=6, seed=3)
+    assert a.shape == (3,) and torch.equal(a, b)
+    assert float(a[0]) > float(a[2]) == 0.0
+
+
+def test_entry_forward_on_cpu():
+    forward, args = entry("cpu")
+    payload, snr_db, generator = args
+    assert payload.tolist() == list(range(16)) and float(snr_db) == 0.0
+    ber = forward(*args)
+    assert ber.shape == () and float(ber) == 0.0
+
+
+def test_sweep_grid_and_waterfall_helpers():
+    assert [sweep_lanes(sf) for sf in range(7, 13)] == [512, 256, 128, 64, 32, 16]
+    snrs = np.arange(-26.0, -2.0, 2.0)
+    ber = np.where(snrs < -8.0, 0.3, 0.001)
+    assert waterfall_snr_db(snrs, ber) == -8.0
+    assert waterfall_snr_db(snrs, np.full(12, 0.5)) is None
+    with pytest.raises(ValueError, match="CUDA"):
+        lora_sweep("cpu")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import r4w_tpu_torch, r4w_tpu_torch.entry, r4w_tpu_torch.convert\n"
+            "import r4w_tpu_torch.parallel, r4w_tpu_torch.kernels\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
+            "print(bad)\n"
+            "raise SystemExit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
