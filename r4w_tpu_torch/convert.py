@@ -1,10 +1,10 @@
 """Carry state across from the JAX package.
 
-The LoRa slice has no weights; its state is the parameter set and the
-constant tables. `params_from_reference` reads an ``r4w_tpu`` parameter
-set by its dataclass fields (duck-typed, so JAX is never imported), and
-`tables_numpy` hands the port's tables back as numpy so they can be held
-against the reference's own.
+The ported slices have no weights; their state is the parameter sets and
+the constant tables. `params_from_reference` reads an ``r4w_tpu`` LoRa
+parameter set by its dataclass fields (duck-typed, so JAX is never
+imported), and `tables_numpy` and `viterbi_tables_numpy` hand the port's
+tables back as numpy so they can be held against the reference's own.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from r4w_tpu_torch.kernels import dechirp
+from r4w_tpu_torch.fec import convolutional
+from r4w_tpu_torch.kernels import dechirp, viterbi
 from r4w_tpu_torch.ops import coding
 from r4w_tpu_torch.waveforms.lora import chirp
 from r4w_tpu_torch.waveforms.lora.params import LoRaParams
@@ -47,3 +48,18 @@ def tables_numpy(params: LoRaParams) -> dict[str, np.ndarray]:
         "twiddle": dechirp._twiddle(params.chips_per_symbol, device),
     }
     return {name: t.numpy() for name, t in tables.items()}
+
+
+def viterbi_tables_numpy(constraint: int, polys) -> dict:
+    """The port's trellis tables for a rate-1/R code of constraint `constraint`.
+
+    Keys: ``outputs`` (S, 2, R) and ``next_state`` (S, 2) (reference:
+    ``convolutional._trellis``), ``code_index`` (S, 2), the codeword index
+    per (state, input bit) that the forward kernel reads (the reference's
+    ``oidx`` in ``pallas_kernels._viterbi_consts``), and ``word_width``, the
+    decisions packed per int32 word (its ``w``).
+    """
+    outputs, next_state = convolutional._trellis(constraint, tuple(polys))
+    return {"outputs": outputs, "next_state": next_state,
+            "code_index": viterbi.code_index(constraint, tuple(polys)),
+            "word_width": viterbi.word_width(constraint)}

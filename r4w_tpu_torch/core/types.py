@@ -5,6 +5,10 @@ PyTorch counterpart of ``r4w_tpu.core.types``: IQ samples are
 tensors, and errors are Python exceptions raised on the host before any
 kernel runs. Complex tensors move between devices with ``.to(device)``;
 nothing here splits them into real planes.
+
+Entry points that create tensors put them on `DEFAULT_DEVICE`, the CUDA
+card, unless the caller names another device; functions that take a
+tensor follow that tensor's device.
 """
 
 from __future__ import annotations
@@ -17,6 +21,30 @@ import torch
 IQ_DTYPE = torch.complex64
 REAL_DTYPE = torch.float32
 SYMBOL_DTYPE = torch.int32
+
+# Device policy --------------------------------------------------------------
+DEFAULT_DEVICE = torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means `DEFAULT_DEVICE`.
+
+    There is no fallback to the CPU: on a machine without a card, a
+    caller that wants the CPU says so.
+    """
+    return DEFAULT_DEVICE if device is None else torch.device(device)
+
+
+def to_tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
+    """`x` as a tensor of `dtype` (default: keep or infer it).
+
+    A tensor stays on its own device unless `device` is named; anything
+    else (numpy arrays, lists, scalars) is created on
+    `resolve_device(device)`.
+    """
+    if isinstance(x, torch.Tensor) and device is None:
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
 
 
 class DspError(Exception):

@@ -42,7 +42,7 @@ def _twiddle(k: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = _build.load_library().r4w_dechirp_power
+    fn = _build.load_library("dechirp_power").r4w_dechirp_power
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.types import SYMBOL_DTYPE
+from r4w_tpu_torch.core.types import SYMBOL_DTYPE, resolve_device
 
 
 def _int(x) -> torch.Tensor:
@@ -135,7 +135,7 @@ def _whitening_table(n_bytes: int, device: torch.device) -> torch.Tensor:
 
 def whitening_sequence(n_bytes: int, device=None) -> torch.Tensor:
     """First n_bytes of the LoRa whitening PRBS (as int32 bytes)."""
-    return _whitening_table(n_bytes, torch.device(device or "cpu")).clone()
+    return _whitening_table(n_bytes, resolve_device(device)).clone()
 
 
 def whiten(data) -> torch.Tensor:

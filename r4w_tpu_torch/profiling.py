@@ -1,0 +1,91 @@
+"""Where the device time goes, per cell of the port's paths, on one CUDA card.
+
+``python -m r4w_tpu_torch.profiling`` runs one warm call of each cell under
+``torch.profiler`` with CPU and CUDA activity and prints one JSON line per
+cell: the card's name and power limit, the device busy time (the union of
+the device events' intervals), the span from the first device event's
+start to the last one's end, the idle share of that span, the number of
+device events, and device milliseconds per event name (cut to its first
+96 characters), largest first.
+
+Cells: the LoRa Monte-Carlo sweep at SF7 and at SF12 (one ``ber_sweep``
+call at ``entry.lora_sweep``'s shape) and the decode bench (one
+``viterbi_decode_mxu`` at ``entry.viterbi_bench``'s 4096 × 2048 shape).
+It needs a CUDA card; it has no CPU path.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import subprocess
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from r4w_tpu_torch.entry import (SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB, VITERBI_INFO_BITS,
+                                 VITERBI_LANES, sweep_lanes)
+from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.parallel import ber_sweep
+from r4w_tpu_torch.waveforms import lora
+
+TOP_EVENTS = 8
+NAME_CHARS = 96  # device event names are cut to this length
+
+
+def breakdown(fn) -> dict:
+    """Device time of one call of `fn` (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the profiler recorded no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end_us = 0.0, spans[0][0]
+    for start, stop in spans:
+        busy_us += max(0.0, stop - max(start, end_us))
+        end_us = max(end_us, stop)
+    span_us = end_us - spans[0][0]
+    by_name = defaultdict(float)
+    for e in events:
+        by_name[e.name[:NAME_CHARS]] += (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_EVENTS]
+    return {"busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
+            "idle_share": 1.0 - busy_us / span_us if span_us else 0.0,
+            "device_events": len(events), "top_ms": dict(top)}
+
+
+def cells(device: torch.device) -> dict:
+    """The cells, each a no-argument call on `device`."""
+    runs = {}
+    for sf in (7, 12):
+        params = lora.LoRaParams(sf=sf)
+        payload = (torch.arange(SWEEP_PAYLOAD_BYTES, dtype=torch.int32, device=device)
+                   % params.chips_per_symbol)
+        runs[f"lora_sweep_sf{sf}"] = functools.partial(
+            ber_sweep, functools.partial(lora.loopback_ber, params), payload, SWEEP_SNRS_DB,
+            n_lanes=sweep_lanes(sf), seed=sf)
+    bits = np.random.default_rng(6).integers(0, 2, (VITERBI_LANES, VITERBI_INFO_BITS))
+    soft = 1.0 - 2.0 * conv_encode(torch.from_numpy(bits.astype(np.int32)).to(device)).float()
+    runs["viterbi_bench"] = functools.partial(viterbi_decode_mxu, soft, soft=True)
+    return runs
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for name, fn in cells(torch.device("cuda")).items():
+        print(json.dumps({"cell": name, "card": card, **breakdown(fn)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

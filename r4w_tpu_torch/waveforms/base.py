@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.types import IQ_DTYPE, CommonParams
+from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, CommonParams, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,12 +152,13 @@ def list_waveforms() -> list[str]:
 
 
 def create_waveform(name: str, sample_rate: float = 125_000.0,
-                    device="cpu") -> Waveform | None:
-    """Create a waveform by (aliased) name on `device`; None if unknown."""
+                    device=DEFAULT_DEVICE) -> Waveform | None:
+    """Create a waveform by (aliased) name on `device` (the CUDA card
+    unless named); None if the name is unknown."""
     builder = _REGISTRY.get(_norm(name))
     if builder is None:
         return None
-    return builder(sample_rate, torch.device(device))
+    return builder(sample_rate, resolve_device(device))
 
 
 class WaveformFactory:

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.types import IQ_DTYPE, SYMBOL_DTYPE
+from r4w_tpu_torch.core.types import IQ_DTYPE, SYMBOL_DTYPE, resolve_device
 from r4w_tpu_torch.waveforms.lora.params import LoRaParams
 
 
@@ -45,7 +45,7 @@ def _base_chirps(sf: int, bw_hz: int, oversample: int, device: torch.device):
 
 def _chirps(params: LoRaParams, device) -> tuple[torch.Tensor, torch.Tensor]:
     return _base_chirps(params.sf, params.bw_hz, params.oversample,
-                        torch.device(device or "cpu"))
+                        resolve_device(device))
 
 
 def base_upchirp(params: LoRaParams, device=None) -> torch.Tensor:

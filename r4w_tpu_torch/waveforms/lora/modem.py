@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from r4w_tpu_torch.channel import awgn
-from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE
+from r4w_tpu_torch.core.types import (DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE,
+                                      resolve_device)
 from r4w_tpu_torch.kernels.dechirp import dechirp_power_dispatch
 from r4w_tpu_torch.ops import coding
 from r4w_tpu_torch.waveforms.lora import chirp as chirp_mod
@@ -58,13 +59,13 @@ def encode_symbols(params: LoRaParams, payload) -> torch.Tensor:
 
 
 def modulate(params: LoRaParams, payload, include_preamble: bool = True,
-             device=None) -> torch.Tensor:
+             device=DEFAULT_DEVICE) -> torch.Tensor:
     """Full LoRa TX chain: payload bytes -> IQ.
 
-    payload: (..., n_bytes) int32, moved to `device` if given. Returns
-    (..., n_samples) complex64 on the payload's device.
+    payload: (..., n_bytes) int32, moved to `device`. Returns
+    (..., n_samples) complex64 on `device`.
     """
-    payload = torch.as_tensor(payload, device=device).to(SYMBOL_DTYPE)
+    payload = torch.as_tensor(payload, device=resolve_device(device)).to(SYMBOL_DTYPE)
     chirps = chirp_mod.symbol_chirps(params, encode_symbols(params, payload))
     body = chirps.reshape(*chirps.shape[:-2], -1)
     if not include_preamble:
@@ -146,7 +147,7 @@ def loopback_ber(params: LoRaParams, payload, snr_db, *,
     Pass exactly one of `generator` and `noise` (see `channel.awgn`).
     """
     payload = torch.as_tensor(payload).to(SYMBOL_DTYPE)
-    tx = modulate(params, payload, include_preamble=False)
+    tx = modulate(params, payload, include_preamble=False, device=payload.device)
     snr = torch.as_tensor(snr_db, dtype=REAL_DTYPE, device=tx.device)
     batch = torch.broadcast_shapes(tx.shape[:-1], snr.shape)
     rx = awgn(tx.expand(*batch, tx.shape[-1]), snr[..., None], generator=generator,

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from r4w_tpu_torch.core.types import CommonParams
+from r4w_tpu_torch.core.types import DEFAULT_DEVICE, CommonParams
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.base import (
     DemodResult,
@@ -27,7 +27,7 @@ from r4w_tpu_torch.waveforms.base import (
 class LoRaWaveform(Waveform):
     common: CommonParams = CommonParams()
     params: lora.LoRaParams = lora.LoRaParams()
-    device: torch.device = torch.device("cpu")
+    device: torch.device = DEFAULT_DEVICE
 
     @property
     def common_params(self) -> CommonParams:

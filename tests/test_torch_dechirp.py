@@ -34,7 +34,7 @@ def _rows(sf: int, n_clean: int = 16, n_noise: int = 8):
     clean = chirp.symbol_chirps(p, torch.from_numpy(syms)).numpy()
     noise = (rng.standard_normal((n_noise, k))
              + 1j * rng.standard_normal((n_noise, k))).astype(np.complex64)
-    return p, syms, np.concatenate([clean, noise]), chirp.base_downchirp(p).numpy()
+    return p, syms, np.concatenate([clean, noise]), chirp.base_downchirp(p, device="cpu").numpy()
 
 
 @pytest.mark.parametrize("sf", range(5, 10))
@@ -78,7 +78,7 @@ def test_demodulate_decimates_before_the_product_at_oversample():
     """x[::osf] · d[::osf] takes the same products as the reference's (x · d)[::osf]."""
     p = lora.LoRaParams(sf=7, oversample=4)
     x = chirp.symbol_chirps(p, torch.tensor([3, 77, 120], dtype=torch.int32))
-    down = chirp.base_downchirp(p)
+    down = chirp.base_downchirp(p, device="cpu")
     # vectorised and strided complex products may round apart by one ulp
     torch.testing.assert_close(x[..., ::4] * down[::4], (x * down)[..., ::4], rtol=0, atol=2e-7)
     syms, _, _ = lora.demodulate_symbols(p, x)

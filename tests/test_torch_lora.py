@@ -82,8 +82,8 @@ def test_tables_equal_reference(kw):
     np.testing.assert_array_equal(tables["hamming_decode"], dec)
     np.testing.assert_array_equal(tables["whitening"],
                                   ref_coding._whitening_sequence(WHITENING_BYTES))
-    np.testing.assert_array_equal(chirp.base_upchirp(p).numpy(), up)
-    np.testing.assert_array_equal(chirp.base_downchirp(p).numpy(), down)
+    np.testing.assert_array_equal(chirp.base_upchirp(p, device="cpu").numpy(), up)
+    np.testing.assert_array_equal(chirp.base_downchirp(p, device="cpu").numpy(), down)
 
 
 @pytest.mark.parametrize("kw", [dict(sf=7), dict(sf=9), dict(sf=12), dict(sf=7, oversample=2)])
@@ -99,7 +99,7 @@ def test_symbol_chirps_match_reference_gather(kw):
 @pytest.mark.parametrize("kw", [dict(sf=7), dict(sf=5), dict(sf=8, oversample=2)])
 def test_preamble_and_instantaneous_frequency_match_reference(kw):
     p, rp = _params(**kw)
-    pre = chirp.preamble(p)
+    pre = chirp.preamble(p, device="cpu")
     np.testing.assert_array_equal(pre.numpy(), np.asarray(ref_chirp.preamble(rp)))
     freq = chirp.instantaneous_frequency(p, pre[: 4 * p.samples_per_symbol]).numpy()
     ref_freq = np.asarray(ref_chirp.instantaneous_frequency(
@@ -129,7 +129,7 @@ def test_encode_decode_symbols_equal_reference(sf, cr):
 def test_clean_roundtrip(sf, cr):
     p = lora.LoRaParams(sf=sf, cr=cr)
     payload = torch.tensor([0xAB, 0xCD, 0xEF, 0x12, 0x34], dtype=torch.int32)
-    tx = lora.modulate(p, payload, include_preamble=False)
+    tx = lora.modulate(p, payload, include_preamble=False, device="cpu")
     assert tx.dtype == torch.complex64
     assert tx.shape == (p.n_payload_symbols(5) * p.samples_per_symbol,)
     result = lora.demodulate(p, tx)
@@ -142,10 +142,11 @@ def test_modulate_equals_reference(kw):
     payload = np.arange(7, dtype=np.int32) * 37 % 256
     for pre in (True, False):
         np.testing.assert_array_equal(
-            lora.modulate(p, torch.from_numpy(payload), include_preamble=pre).numpy(),
+            lora.modulate(p, torch.from_numpy(payload), include_preamble=pre,
+                          device="cpu").numpy(),
             np.asarray(ref_lora.modulate(rp, jnp.asarray(payload), include_preamble=pre)))
     batch = np.stack([payload, payload[::-1]])
-    tx = lora.modulate(p, torch.from_numpy(batch))
+    tx = lora.modulate(p, torch.from_numpy(batch), device="cpu")
     for row, single in zip(tx, batch):
         np.testing.assert_array_equal(row.numpy(),
                                       np.asarray(ref_lora.modulate(rp, jnp.asarray(single))))

@@ -7,6 +7,7 @@ card, through chip_smoke.py.
 """
 
 import functools
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -22,9 +23,12 @@ from r4w_tpu.waveforms import create_waveform as ref_create_waveform
 from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
-from r4w_tpu_torch.entry import entry, lora_sweep, sweep_lanes, waterfall_snr_db
+from r4w_tpu_torch.core import types
+from r4w_tpu_torch.entry import entry, lora_sweep, sweep_lanes, viterbi_bench, waterfall_snr_db
 from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, monte_carlo_ber
 from r4w_tpu_torch.waveforms import lora
+from r4w_tpu_torch.waveforms.lora_waveform import LoRaWaveform
+from r4w_tpu_torch.waveforms.milstd188110 import MilStd188110
 
 REPO = Path(__file__).resolve().parents[1]
 SNRS_DB = np.array([-12.0, -8.0, -4.0, 0.0], np.float32)
@@ -51,7 +55,7 @@ def test_loopback_ber_matches_reference_with_its_noise():
 
 
 def test_quick_start_roundtrip():
-    wf = create_waveform("LoRa-SF7", 125_000.0)
+    wf = create_waveform("LoRa-SF7", 125_000.0, device="cpu")
     tx = wf.modulate(b"hello")
     np.testing.assert_array_equal(
         tx.numpy(), np.asarray(ref_create_waveform("LoRa-SF7", 125_000.0).modulate(b"hello")))
@@ -63,7 +67,7 @@ def test_quick_start_roundtrip():
 
 
 def test_factory_names_aliases_and_unknowns():
-    assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12"]
+    assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12", "MIL-STD-188-110"]
     assert WaveformFactory.list() == list_waveforms()
     assert WaveformFactory.create("css").params.sf == 7
     assert create_waveform("lora_sf12").params.sf == 12
@@ -73,7 +77,7 @@ def test_factory_names_aliases_and_unknowns():
 
 
 def test_waveform_educational_defaults():
-    wf = create_waveform("LoRa")
+    wf = create_waveform("LoRa", device="cpu")
     stages = wf.get_modulation_stages(b"\x01")
     assert [name for name, _ in stages] == ["input bits", "modulated IQ"]
     assert wf.get_visualization(b"\x01")["constellation"].numel() == 0
@@ -85,10 +89,12 @@ def test_waveform_educational_defaults():
 def test_batch_helpers_equal_single_calls():
     params = lora.LoRaParams(sf=8)
     payloads = torch.tensor([[1, 2, 3], [200, 100, 50]], dtype=torch.int32)
-    tx = batch_modulate(functools.partial(lora.modulate, params, include_preamble=False),
+    tx = batch_modulate(functools.partial(lora.modulate, params, include_preamble=False,
+                                          device="cpu"),
                         payloads)
     for row, payload in zip(tx, payloads):
-        assert torch.equal(row, lora.modulate(params, payload, include_preamble=False))
+        assert torch.equal(row, lora.modulate(params, payload, include_preamble=False,
+                                                device="cpu"))
     res = batch_demodulate(functools.partial(lora.demodulate, params), tx)
     assert torch.equal(res.payload[:, :3], payloads)
 
@@ -123,12 +129,27 @@ def test_sweep_grid_and_waterfall_helpers():
     assert waterfall_snr_db(snrs, np.full(12, 0.5)) is None
     with pytest.raises(ValueError, match="CUDA"):
         lora_sweep("cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        viterbi_bench("cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """Read without a card: every entry point that creates tensors defaults
+    to CUDA, and None resolves to it with no fallback to the CPU."""
+    cuda = torch.device("cuda")
+    for fn in (create_waveform, entry, lora_sweep, viterbi_bench, lora.modulate):
+        assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
+    assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
+    assert create_waveform("LoRa").device == cuda
+    assert types.resolve_device(None) == cuda and types.resolve_device("cpu").type == "cpu"
+    assert types.to_tensor(torch.ones(2)).device.type == "cpu"  # a tensor keeps its device
 
 
 def test_import_leaves_jax_out():
     code = ("import sys\n"
             "import r4w_tpu_torch, r4w_tpu_torch.entry, r4w_tpu_torch.convert\n"
-            "import r4w_tpu_torch.parallel, r4w_tpu_torch.kernels\n"
+            "import r4w_tpu_torch.parallel, r4w_tpu_torch.kernels, r4w_tpu_torch.fec\n"
+            "import r4w_tpu_torch.ops.modem, r4w_tpu_torch.ops.spreading, r4w_tpu_torch.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
             "print(bad)\n"
