@@ -3,14 +3,17 @@
 
 Builds every Hopper kernel from this checkout (one nvcc per source, run in
 parallel) and holds each against its plain PyTorch version. Then it drives
-two paths through the port's public entry points and shows that each
+three paths through the port's public entry points and shows that each
 launched its kernels: the LoRa loopback (the quick start, ``entry()``'s
 forward step and the full SF7-SF12 Monte-Carlo sweep; dechirp-power
-kernel) and the K=7 soft Viterbi decode (the full-size decode bench and
+kernel), the K=7 soft Viterbi decode (the full-size decode bench and
 MIL-STD-188-110 round trips with autobaud; forward-ACS and traceback
-kernels). Each phase prints one line; a failed phase raises, and the exit
-code is then non-zero. The second-to-last line is the kernel table as
-JSON, the last line the device record.
+kernels) and the digital down-converter (the full-size DDC bench, a
+DUC -> DDC round trip, a streamed frequency-translating FIR and a
+rational resampler; FIR-decimate and NCO kernels). Each phase prints one
+line; a failed phase raises, and the exit code is then non-zero. The
+second-to-last line is the kernel table as JSON, the last line the device
+record.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
@@ -25,14 +28,18 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
 from r4w_tpu_torch import create_waveform
 from r4w_tpu_torch.channel import awgn
-from r4w_tpu_torch.entry import (SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB, VITERBI_INFO_BITS,
-                                 VITERBI_LANES, entry, lora_sweep, sweep_lanes, viterbi_bench)
+from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
+                                 DDC_STREAMS, SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB,
+                                 VITERBI_INFO_BITS, VITERBI_LANES, ddc_bench, ddc_signal, entry,
+                                 lora_sweep, sweep_lanes, viterbi_bench)
 from r4w_tpu_torch.fec import convolutional
-from r4w_tpu_torch.kernels import _build, viterbi
+from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda
+from r4w_tpu_torch.ops import filters, filters2, resample, stream_math
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora import chirp
 
@@ -48,6 +55,17 @@ FP32_OPS_PER_S = 67e12
 VITERBI_CODES = {5: (0o23, 0o35), 7: (0o171, 0o133)}
 MIL_DATA = bytes([0xA7, 0x1B, 0x3C, 0xD2, 0x55, 0x00, 0xFF, 0x42])  # tests/test_hf_modems.py:23
 MIL_CASES = ((2400, 14.0), (1200, 8.0), (600, 5.0), (75, -4.0))  # rate bps, SNR dB
+FIR_REL_TOL = 1e-5  # max|kernel - plain| / max|plain|: FP32 sums in the same tap order
+NCO_REL_TOL = 1e-5  # max|kernel - plain| / (gain · max|x|): the same float32 phase
+DDC_REL_TOL = 1e-4  # max|path - plain path| / max|plain path|
+DDC_TAPS = 63       # the DDC's default lowpass
+FIR_TAPS = (1, 4, 31, 63, 512, 1025)
+FIR_FACTORS = (1, 2, 4, 8)
+NCO_CASES = ((30.72e6 / 4, 30.72e6), (-30.72e6 / 4, 30.72e6), (30.72e6 / 8, 30.72e6),
+             (-30.72e6 / 8, 30.72e6), (2500.0, 1e6))  # freq Hz, sample rate Hz
+ROUND_TRIP_SAMPLES = 1 << 17  # baseband samples per stream, ×8 up and back down
+ROUND_TRIP_TONE_HZ = 120e3
+XLATING_BLOCKS = 4
 
 
 def phase(name: str, message: str) -> None:
@@ -69,9 +87,9 @@ def cuda_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
 
 
 def rel_err(got, ref) -> tuple[float, float]:
-    """(max|got - ref|, that over max(ref))."""
+    """(max|got - ref|, that over max|ref|)."""
     abs_err = float(torch.max(torch.abs(got - ref)))
-    return abs_err, abs_err / float(torch.max(ref))
+    return abs_err, abs_err / float(torch.max(torch.abs(ref)))
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -85,6 +103,219 @@ def zero_launch_counts() -> None:
     dechirp_power.launches = 0
     viterbi.viterbi_forward.launches = 0
     viterbi.viterbi_traceback.launches = 0
+    fir.fir_decimate.launches = 0
+    nco.nco_mix.launches = 0
+
+
+def randn_iq(shape, gen: torch.Generator) -> torch.Tensor:
+    return torch.complex(torch.randn(shape, generator=gen, device=gen.device),
+                         torch.randn(shape, generator=gen, device=gen.device))
+
+
+def in_turns(plain, kernel) -> tuple[list[float], list[float]]:
+    """(kernel ms ×2, plain ms ×2), taken plain, kernel, kernel, plain on one card."""
+    p = [cuda_ms(plain)]
+    k = [cuda_ms(kernel), cuda_ms(kernel)]
+    p.append(cuda_ms(plain))
+    return k, p
+
+
+def plain_decimating_fir(taps: torch.Tensor, x: torch.Tensor, factor: int) -> torch.Tensor:
+    """`filters.decimating_fir` from zero state with the dispatcher bypassed."""
+    state = x.new_zeros(x.shape[:-1] + (taps.shape[0] - 1,))
+    return fir.fir_decimate(torch.cat([state, x], dim=-1), taps.flip(0), factor)
+
+
+def fir_bound(rows: int, n: int, k: int, factor: int) -> tuple[float, str]:
+    """Complex64 rows in, kept outputs out; 2 FMAs (4 flops) per tap and output."""
+    n_out = fir.n_outputs(n, k, factor)
+    return bound(8 * rows * n + 4 * k + 8 * rows * n_out, 4 * rows * n_out * k)
+
+
+def check_fir_kernel(dev: torch.device) -> dict:
+    """Phase 12: the FIR-decimate kernel against its plain version over real
+    and complex input, 1 and 64 rows, every factor and tap count of the
+    grid and N = 997, 4096+13 and K-1; then timed beside the plain version
+    and the cuDNN conv1d yardstick at the DDC's shape (f = 8) and the
+    DUC's dense shape (f = 1). Returns the kernel-table entry."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases, worst = 0, 0.0
+    for complex_ in (False, True):
+        for rows in (1, 64):
+            for k in FIR_TAPS:
+                taps = torch.randn(k, generator=gen, device=dev)
+                for n in sorted({997, 4096 + 13, max(k - 1, 1)}):
+                    x = (randn_iq((rows, n), gen) if complex_
+                         else torch.randn((rows, n), generator=gen, device=dev))
+                    for factor in FIR_FACTORS:
+                        got = fir.fir_decimate_cuda(x, taps, factor)
+                        want = fir.fir_decimate(x, taps, factor)
+                        torch.cuda.synchronize()
+                        cases += 1
+                        if got.shape != want.shape or got.dtype != want.dtype:
+                            raise AssertionError(f"fir_decimate {rows}x{n} K={k} f={factor}: "
+                                                 f"{got.shape} {got.dtype} vs {want.shape}")
+                        if want.numel():
+                            _, rel = rel_err(got, want)
+                            worst = max(worst, rel)
+                            if not rel < FIR_REL_TOL:
+                                raise AssertionError(
+                                    f"fir_decimate {'complex' if complex_ else 'real'} "
+                                    f"{rows}x{n} K={k} f={factor}: max|Δ|/max|ref| {rel:.3g}")
+    phase("12 fir kernel", f"{cases} cases (real/complex, rows 1/64, K {FIR_TAPS}, f "
+          f"{FIR_FACTORS}, N 997/4109/K-1) match the plain version: worst "
+          f"max|Δ|/max|ref| {worst:.3g} < {FIR_REL_TOL}")
+
+    rows, n = DDC_STREAMS, DDC_SAMPLES + DDC_TAPS - 1
+    taps = torch.from_numpy(filters.design_lowpass(
+        DDC_TAPS, DDC_RATE_HZ / (2.5 * DDC_DECIMATION), DDC_RATE_HZ)).to(dev)
+    x = randn_iq((rows, n), gen)
+    entry_row = {}
+    for factor, key in ((DDC_DECIMATION, ""), (1, "_dense")):
+        got = fir.fir_decimate_cuda(x, taps, factor)
+        want = fir.fir_decimate(x, taps, factor)
+        abs_err, rel = rel_err(got, want)
+        if not rel < FIR_REL_TOL:
+            raise AssertionError(f"fir_decimate at ({rows}, {n}) f={factor}: {rel:.3g}")
+        del got, want
+        kern, plain = in_turns(lambda: fir.fir_decimate(x, taps, factor),
+                               lambda: fir.fir_decimate_cuda(x, taps, factor))
+        # the yardstick: cuDNN conv1d in full FP32 on the (rows, 2, n) real and
+        # imaginary planes with the taps repeated, groups=2; the layout copy untimed
+        planes = torch.view_as_real(x).permute(0, 2, 1).contiguous()
+        weight = taps.view(1, 1, -1).repeat(2, 1, 1)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_out = F.conv1d(planes, weight, stride=factor, groups=2)
+            library = cuda_ms(lambda: F.conv1d(planes, weight, stride=factor, groups=2))
+        got = fir.fir_decimate_cuda(x, taps, factor)
+        _, lib_rel = rel_err(torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()), got)
+        if not lib_rel < FIR_REL_TOL:
+            raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
+        del planes, lib_out, got
+        b_ms, b_by = fir_bound(rows, n, DDC_TAPS, factor)
+        ms = sum(kern) / 2
+        entry_row.update({f"ms{key}": ms, f"plain_ms{key}": sum(plain) / 2,
+                          f"bound_ms{key}": b_ms, f"library_ms{key}": library})
+        if not key:
+            entry_row.update({"max_abs_err": abs_err, "bound_by": b_by,
+                              "shape": [rows, n, DDC_TAPS, factor]})
+        else:
+            entry_row["bound_by_dense"] = b_by
+        phase("12 timing", f"fir_decimate complex ({rows}, {n}) K={DDC_TAPS} f={factor}: "
+              f"kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms, "
+              f"conv1d (cuDNN, FP32, 2 planes, groups=2, max|Δ|/max|y| {lib_rel:.3g}) "
+              f"{library:.4f} ms (mean of "
+              f"{TIMED_LAUNCHES}); bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.2f}% of it; "
+              f"max|Δ| {abs_err:.4g}")
+    return entry_row
+
+
+def check_nco_kernel(dev: torch.device) -> dict:
+    """Phase 13: the NCO kernel against its plain version at ±fs/4, ±fs/8 and
+    2500 Hz at 1 MHz, gain 1 and 2, φ₀ 0 and 1, up to 2^20 samples a row
+    (the phase-rounding trap shows only at large indices); then timed at
+    (64, 2^20). Returns the kernel-table entry."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases, worst = 0, 0.0
+    for shape in ((2, 1 << 20), (3, 4097)):
+        x = randn_iq(shape, gen)
+        scale = float(x.abs().max())
+        for freq, rate in NCO_CASES:
+            for gain in (1.0, 2.0):
+                for phase0 in (0.0, 1.0):
+                    got = nco.nco_mix_cuda(x, freq, rate, phase0, gain)
+                    want = nco.nco_mix(x, freq, rate, phase0, gain)
+                    rel = float((got - want).abs().max()) / (gain * scale)
+                    cases += 1
+                    worst = max(worst, rel)
+                    if not rel <= NCO_REL_TOL:
+                        raise AssertionError(f"nco_mix {shape} f={freq} fs={rate} gain={gain} "
+                                             f"φ0={phase0}: max|Δ|/(gain·max|x|) {rel:.3g}")
+    phase("13 nco kernel", f"{cases} cases (±fs/4, ±fs/8, 2500 Hz at 1 MHz; gain 1/2; φ0 0/1; "
+          f"rows of 2^20 and 4097) match the plain version: worst max|Δ|/(gain·max|x|) "
+          f"{worst:.3g} <= {NCO_REL_TOL}")
+
+    x = randn_iq((DDC_STREAMS, DDC_SAMPLES), gen)
+    freq = -DDC_CENTER_HZ
+    got = nco.nco_mix_cuda(x, freq, DDC_RATE_HZ)
+    abs_err = float((got - nco.nco_mix(x, freq, DDC_RATE_HZ)).abs().max())
+    del got
+    kern, plain = in_turns(lambda: nco.nco_mix(x, freq, DDC_RATE_HZ),
+                           lambda: nco.nco_mix_cuda(x, freq, DDC_RATE_HZ))
+    b_ms, b_by = bound(16 * x.numel(), 0)  # 8 bytes in, 8 out per sample
+    ms = sum(kern) / 2
+    phase("13 timing", f"nco_mix at {tuple(x.shape)}, f={freq}: kernel {kern[0]:.4f}/"
+          f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms (mean of "
+          f"{TIMED_LAUNCHES}); bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.2f}% of it; "
+          f"max|Δ| {abs_err:.4g}")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": sum(plain) / 2, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": list(x.shape)}
+
+
+def drive_ddc_path(dev: torch.device) -> None:
+    """Phase 14: the DDC path through the port's entry points."""
+    bench = ddc_bench(dev)
+    phase("14 ddc bench", f"{bench['streams']} streams × {bench['samples']} samples at "
+          f"{DDC_RATE_HZ / 1e6} MS/s, /{bench['decimation']}: tone amplitude "
+          f"{bench['tone_amplitude']}, interferer >= {bench['rejection_db']:.2f} dB down, peak "
+          f"at bin {bench['peak_bin']}; msps {bench['msps']:.3f}, compute_s "
+          f"{bench['compute_s']:.6f}")
+
+    x = ddc_signal(dev)
+    y = stream_math.digital_down_convert(x, DDC_CENTER_HZ, DDC_RATE_HZ, DDC_DECIMATION)
+    taps = torch.from_numpy(filters.design_lowpass(
+        DDC_TAPS, DDC_RATE_HZ / (2.5 * DDC_DECIMATION), DDC_RATE_HZ)).to(dev)
+    want = plain_decimating_fir(taps, nco.nco_mix(x, -DDC_CENTER_HZ, DDC_RATE_HZ),
+                                DDC_DECIMATION)
+    _, rel = rel_err(y, want)
+    if not rel < DDC_REL_TOL:
+        raise AssertionError(f"DDC path differs from the plain path: {rel:.3g}")
+    del x, y, want
+    phase("14 ddc path", f"digital_down_convert equals the plain path on the bench signal: "
+          f"max|Δ|/max|ref| {rel:.3g} < {DDC_REL_TOL}")
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rate_in = DDC_RATE_HZ / DDC_DECIMATION
+    m = torch.arange(ROUND_TRIP_SAMPLES, dtype=torch.float64, device=dev)
+    start = 2.0 * math.pi * torch.rand((DDC_STREAMS, 1), generator=gen, device=dev,
+                                       dtype=torch.float64)
+    base = torch.polar(torch.ones_like(m), 2.0 * math.pi * ROUND_TRIP_TONE_HZ / rate_in * m
+                       + start).to(torch.complex64)
+    up = filters2.digital_up_converter(base, DDC_DECIMATION, DDC_CENTER_HZ, DDC_RATE_HZ)
+    down = stream_math.digital_down_convert(up, DDC_CENTER_HZ, DDC_RATE_HZ, DDC_DECIMATION)
+    seg = slice(64, ROUND_TRIP_SAMPLES - 64)
+    amp = torch.abs(torch.mean(down[:, seg].to(torch.complex128) * base[:, seg].conj(), dim=-1))
+    if not (down.shape == base.shape and float((amp - 1.0).abs().max()) < 0.02):
+        raise AssertionError(f"DUC -> DDC round trip: {tuple(down.shape)}, amplitude "
+                             f"{float(amp.min())}..{float(amp.max())}")
+    phase("14 round trip", f"DUC ×{DDC_DECIMATION} to {DDC_CENTER_HZ / 1e6} MHz and DDC back, "
+          f"{tuple(base.shape)}: tone amplitude {float(amp.min()):.6f}..{float(amp.max()):.6f}")
+    del up, down
+
+    fs = 1e6
+    center = -fs / (32 * math.pi)  # a phase step of exactly 1/16 rad: block phases are exact
+    x = randn_iq((DDC_STREAMS, XLATING_BLOCKS << 16), gen)
+    xtaps = filters.design_lowpass(DDC_TAPS, 50e3, fs)
+    whole, _, _ = filters.freq_xlating_fir(xtaps, x, center, fs)
+    parts, state, ph = [], None, 0.0
+    for block in x.chunk(XLATING_BLOCKS, dim=-1):
+        y, state, ph = filters.freq_xlating_fir(xtaps, block, center, fs, state, ph)
+        parts.append(y)
+    _, rel = rel_err(torch.cat(parts, dim=-1), whole)
+    if not rel < FIR_REL_TOL:
+        raise AssertionError(f"freq_xlating_fir in {XLATING_BLOCKS} blocks: {rel:.3g}")
+    phase("14 freq_xlating_fir", f"{XLATING_BLOCKS} blocks with carried state and phase equal "
+          f"one shot at {tuple(x.shape)}: max|Δ|/max|ref| {rel:.3g}")
+
+    x = x[:, : 1 << 16].contiguous()
+    y = resample.rational_resample(x, 3, 2)
+    rtaps = torch.from_numpy(filters.design_lowpass(128, 0.5 / 3, 1.0)).to(dev)
+    want = plain_decimating_fir(rtaps, filters._zero_stuff(x, 3), 2)
+    _, rel = rel_err(y, want)
+    if not (y.is_cuda and y.shape == (DDC_STREAMS, 3 << 15) and rel < FIR_REL_TOL):
+        raise AssertionError(f"rational_resample 3/2: {tuple(y.shape)} on {y.device}, {rel:.3g}")
+    phase("14 rational_resample", f"3/2 on {tuple(x.shape)} -> {tuple(y.shape)} on the card, "
+          f"max|Δ|/max|plain| {rel:.3g}")
 
 
 def noisy_branch_metrics(lanes: int, steps: int, constraint: int, seed: int):
@@ -331,6 +562,21 @@ def main() -> None:
     phase("11 launches", f"viterbi_forward kernel launched {fwd} times, viterbi_traceback "
           f"{tb} times in phases 9-10")
 
+    fir_timing = check_fir_kernel(dev)
+    nco_timing = check_nco_kernel(dev)
+
+    # The DDC path starts here: only its launches count.
+    zero_launch_counts()
+    drive_ddc_path(dev)
+
+    # 15. The DDC path went through both kernels.
+    fir_launches, nco_launches = fir.fir_decimate.launches, nco.nco_mix.launches
+    if fir_launches <= 0 or nco_launches <= 0:
+        raise AssertionError(f"the DDC path launched fir_decimate {fir_launches}, nco_mix "
+                             f"{nco_launches} times")
+    phase("15 launches", f"fir_decimate kernel launched {fir_launches} times, nco_mix "
+          f"{nco_launches} times in phase 14")
+
     def dechirp_bound(t):  # complex64 rows in, float32 power out; FFT flops
         k = t["k"]
         return bound(t["rows"] * k * (8 + 4) + 8 * k, t["rows"] * k * (5 * math.log2(k) + 9))
@@ -365,6 +611,23 @@ def main() -> None:
             **viterbi_timing[name],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "fir_decimate",
+        "route": "cuda",
+        "source": "r4w_tpu_torch/csrc/fir_decimate.cu",
+        "replaces": "r4w_tpu/kernels/pallas_kernels.py:185",
+        "launches": fir_launches,
+        **fir_timing,
+    })
+    kernels.append({
+        "name": "nco_mix",
+        "route": "cuda",
+        "source": "r4w_tpu_torch/csrc/nco_mix.cu",
+        "replaces": "r4w_tpu/kernels/pallas_kernels.py:244",
+        "launches": nco_launches,
+        **nco_timing,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

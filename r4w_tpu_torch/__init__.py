@@ -7,7 +7,12 @@ held against it on the same inputs, and never imports it or JAX.
 
 Ported so far: the LoRa loopback path (parameters, chirps, coding chain,
 AWGN, modem, Monte-Carlo sweeps, the `Waveform` factory) and its kernel,
-the fused dechirp + DFT power (`kernels.dechirp`).
+the fused dechirp + DFT power (`kernels.dechirp`); the K=7 soft Viterbi
+path (`fec.convolutional`, MIL-STD-188-110) and its two kernels
+(`kernels.viterbi`); the digital down-converter path (`ops.filters`,
+`ops.resample`, `ops.stream_math`, `ops.filters2`) and its two kernels,
+the FIR with decimation (`kernels.fir`) and the oscillator mix
+(`kernels.nco`).
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE
+from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE, to_tensor
 
 
 def _complex_normal(shape, std, *, generator: torch.Generator, device=None) -> torch.Tensor:
@@ -40,7 +40,7 @@ def awgn(samples, snr_db, *, generator: torch.Generator | None = None,
     """
     if (generator is None) == (noise is None):
         raise ValueError("pass exactly one of generator and noise")
-    samples = torch.as_tensor(samples).to(IQ_DTYPE)
+    samples = to_tensor(samples, IQ_DTYPE)
     device = samples.device
     if measured_power is None:
         sig_power = torch.mean(samples.real ** 2 + samples.imag ** 2, dim=-1,

@@ -5,6 +5,9 @@ the constant tables. `params_from_reference` reads an ``r4w_tpu`` LoRa
 parameter set by its dataclass fields (duck-typed, so JAX is never
 imported), and `tables_numpy` and `viterbi_tables_numpy` hand the port's
 tables back as numpy so they can be held against the reference's own.
+`fir_from_reference` takes a reference FIR's taps and streaming state
+(numpy) onto a device, so a stream begun in the JAX package goes on in
+the port.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE
 from r4w_tpu_torch.fec import convolutional
 from r4w_tpu_torch.kernels import dechirp, viterbi
 from r4w_tpu_torch.ops import coding
@@ -63,3 +67,22 @@ def viterbi_tables_numpy(constraint: int, polys) -> dict:
     return {"outputs": outputs, "next_state": next_state,
             "code_index": viterbi.code_index(constraint, tuple(polys)),
             "word_width": viterbi.word_width(constraint)}
+
+
+def fir_from_reference(taps, state=None, device=DEFAULT_DEVICE):
+    """A reference FIR's parameters and streaming state as the port's tensors.
+
+    `taps` is the (K,) tap array and `state` the last K-1 input samples
+    that ``r4w_tpu.ops.filters.fir_filter`` or ``decimating_fir`` returned
+    (numpy, real or complex, any leading batch axes), or None before the
+    first block. Returns (taps float32, state float32 or complex64 or
+    None), both on `device`, to pass to the port's `fir_filter` or
+    `decimating_fir` with the next block.
+    """
+    device = torch.device(device)
+    taps_t = torch.as_tensor(np.array(taps, dtype=np.float32), device=device)
+    if state is None:
+        return taps_t, None
+    state = np.array(state)  # a copy: numpy views of JAX arrays are read-only
+    dtype = IQ_DTYPE if np.iscomplexobj(state) else REAL_DTYPE
+    return taps_t, torch.as_tensor(state, device=device).to(dtype)

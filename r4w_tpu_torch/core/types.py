@@ -72,15 +72,15 @@ class CommonParams:
 
 
 def db_to_linear_power(db, device=None) -> torch.Tensor:
-    return 10.0 ** (torch.as_tensor(db, dtype=REAL_DTYPE, device=device) / 10.0)
+    return 10.0 ** (to_tensor(db, REAL_DTYPE, device) / 10.0)
 
 
 def db_to_linear_amplitude(db, device=None) -> torch.Tensor:
-    return 10.0 ** (torch.as_tensor(db, dtype=REAL_DTYPE, device=device) / 20.0)
+    return 10.0 ** (to_tensor(db, REAL_DTYPE, device) / 20.0)
 
 
 def linear_power_to_db(p, device=None) -> torch.Tensor:
-    return 10.0 * torch.log10(torch.as_tensor(p, dtype=REAL_DTYPE, device=device))
+    return 10.0 * torch.log10(to_tensor(p, REAL_DTYPE, device))
 
 
 def next_pow2(n: int) -> int:

@@ -6,19 +6,24 @@ SF7 forward step, modulate → AWGN → dechirp-DFT-argmax demodulate → BER.
 ``bench_lora_sweep``: the SF7-SF12 Monte-Carlo BER grid at its full size,
 timed on the card with CUDA events. `viterbi_bench(device, seed)` is the
 counterpart of ``bench.py``'s ``bench_viterbi``: a K=7 rate-1/2 soft
-decode of 4096 frames of 2048 bits, timed the same way. Every entry point
-runs on the CUDA card unless the caller names another device.
+decode of 4096 frames of 2048 bits, timed the same way. `ddc_bench(device,
+seed)` is the digital down-converter at a capture size users run: 64
+streams of 2^20 samples at an LTE-20 rate, mixed, lowpassed and decimated
+by 8. Every entry point runs on the CUDA card unless the caller names
+another device.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.types import DEFAULT_DEVICE, REAL_DTYPE, SYMBOL_DTYPE
+from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.parallel import ber_sweep
 from r4w_tpu_torch.waveforms import lora
 
@@ -27,6 +32,15 @@ SWEEP_SFS = tuple(range(7, 13))
 SWEEP_PAYLOAD_BYTES = 16
 BER_TARGET = 0.01
 VITERBI_LANES, VITERBI_INFO_BITS = 4096, 2048  # frames × info bits per frame
+DDC_STREAMS, DDC_SAMPLES = 64, 1 << 20        # streams × complex64 samples per stream
+DDC_RATE_HZ = 30.72e6                          # the LTE-20 sample rate
+DDC_CENTER_HZ, DDC_DECIMATION = 7.68e6, 8
+DDC_TONE_OFFSET_HZ = 120e3                     # the wanted signal, off the channel centre
+DDC_INTERFERER_OFFSET_HZ = -5e6                # an equal-power neighbour, 5 MHz away
+DDC_NOISE_STD = 0.1                            # per component
+DDC_EDGE = 64                                  # output samples skipped at each end
+DDC_AMPLITUDE_TOL = 0.02
+DDC_REJECTION_DB = 50.0
 
 
 def entry(device=DEFAULT_DEVICE):
@@ -121,3 +135,94 @@ def viterbi_bench(device=DEFAULT_DEVICE, seed: int = 6) -> dict:
     return {"info_mbps": VITERBI_LANES * VITERBI_INFO_BITS / compute_s / 1e6,
             "compute_s": compute_s, "lanes": VITERBI_LANES, "info_bits": VITERBI_INFO_BITS,
             "steps": soft.shape[-1] // 2}
+
+
+def ddc_signal(device=DEFAULT_DEVICE, seed: int = 0, streams: int = DDC_STREAMS,
+               samples: int = DDC_SAMPLES) -> torch.Tensor:
+    """(streams, samples) complex64 at `DDC_RATE_HZ`, made on `device`.
+
+    Each stream holds a unit tone at centre + 120 kHz and an equal-power
+    interferer at centre - 5 MHz, each with a random start phase, plus
+    complex Gaussian noise of std 0.1 per component, all drawn from a
+    `torch.Generator` seeded with `seed`.
+    """
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = torch.arange(samples, dtype=torch.float64, device=device)
+    x = torch.complex(torch.randn((streams, samples), generator=gen, device=device),
+                      torch.randn((streams, samples), generator=gen, device=device))
+    x *= DDC_NOISE_STD
+    for offset in (DDC_TONE_OFFSET_HZ, DDC_INTERFERER_OFFSET_HZ):
+        cycles = torch.remainder((DDC_CENTER_HZ + offset) / DDC_RATE_HZ * n, 1.0)
+        start = 2.0 * math.pi * torch.rand((streams, 1), generator=gen, device=device,
+                                           dtype=torch.float64)
+        x += torch.polar(torch.ones_like(cycles), 2.0 * math.pi * cycles + start).to(IQ_DTYPE)
+    return x
+
+
+def _tone_amplitude(y: torch.Tensor, freq_hz: float, sample_rate: float) -> torch.Tensor:
+    """|mean(y · e^{-j2πf·m/fs})| per row, in float64."""
+    m = torch.arange(y.shape[-1], dtype=torch.float64, device=y.device)
+    ref = torch.polar(torch.ones_like(m),
+                      -2.0 * math.pi * torch.remainder(freq_hz / sample_rate * m, 1.0))
+    return torch.abs(torch.mean(y.to(torch.complex128) * ref, dim=-1))
+
+
+def ddc_check(y: torch.Tensor) -> dict:
+    """Hold a DDC output of `ddc_signal` to its bars; raise if any stream fails.
+
+    The tone must come back at amplitude 1 ± 0.02 (64 output samples
+    skipped at each end), its spectral peak must be the bin nearest
+    +120 kHz, and the interferer, measured as the output correlated with
+    its own aliased frequency, must be at least 50 dB below the tone.
+    """
+    rate = DDC_RATE_HZ / DDC_DECIMATION
+    alias = (DDC_INTERFERER_OFFSET_HZ + rate / 2) % rate - rate / 2
+    seg = y[..., DDC_EDGE:y.shape[-1] - DDC_EDGE]
+    tone = _tone_amplitude(seg, DDC_TONE_OFFSET_HZ, rate)
+    interferer = _tone_amplitude(seg, alias, rate)
+    rejection_db = 20.0 * torch.log10(tone / interferer)
+    want_bin = round(DDC_TONE_OFFSET_HZ / rate * y.shape[-1]) % y.shape[-1]
+    peak_bin = torch.argmax(torch.abs(torch.fft.fft(y, dim=-1)), dim=-1)
+    result = {"tone_amplitude": [float(tone.min()), float(tone.max())],
+              "rejection_db": float(rejection_db.min()),
+              "peak_bin": want_bin}
+    if float(torch.max(torch.abs(tone - 1.0))) > DDC_AMPLITUDE_TOL:
+        raise AssertionError(f"DDC tone amplitude outside 1 ± {DDC_AMPLITUDE_TOL}: {result}")
+    if not bool(torch.all(peak_bin == want_bin)):
+        raise AssertionError(f"DDC spectral peak not at bin {want_bin}: "
+                             f"{sorted(set(peak_bin.tolist()))}")
+    if result["rejection_db"] < DDC_REJECTION_DB:
+        raise AssertionError(f"DDC interferer rejection below {DDC_REJECTION_DB} dB: {result}")
+    return result
+
+
+def ddc_bench(device=DEFAULT_DEVICE, seed: int = 0) -> dict:
+    """Digital down-conversion of 64 streams × 2^20 complex64 samples.
+
+    The input (`ddc_signal`, 512 MiB) sits at 30.72 MS/s; the DDC mixes
+    7.68 MHz to baseband and decimates by 8 through its default 63-tap
+    lowpass, giving 64 × 2^17 samples (64 MiB). One warm-up call, then one
+    call timed with CUDA events; raises unless every stream passes
+    `ddc_check`. Returns ``msps`` (input Msamples/s), ``compute_s``
+    (seconds of the timed call), the checks' numbers and the shapes.
+    """
+    device = torch.device(device)
+    _require_cuda("ddc_bench", device)
+    x = ddc_signal(device, seed)
+
+    def run():
+        return digital_down_convert(x, DDC_CENTER_HZ, DDC_RATE_HZ, DDC_DECIMATION)
+
+    run()  # warm-up: builds the kernels
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    y = run()
+    end.record()
+    end.synchronize()
+    compute_s = start.elapsed_time(end) / 1e3
+    checks = ddc_check(y)
+    return {"msps": x.numel() / compute_s / 1e6, "compute_s": compute_s, **checks,
+            "streams": x.shape[0], "samples": x.shape[1], "decimation": DDC_DECIMATION,
+            "out_samples": y.shape[-1]}

@@ -5,6 +5,8 @@ from r4w_tpu_torch.kernels.dechirp import (
     dechirp_power_cuda,
     dechirp_power_dispatch,
 )
+from r4w_tpu_torch.kernels.fir import fir_decimate, fir_decimate_cuda, fir_decimate_dispatch
+from r4w_tpu_torch.kernels.nco import nco_mix, nco_mix_cuda, nco_mix_dispatch
 from r4w_tpu_torch.kernels.viterbi import (
     viterbi_forward,
     viterbi_forward_cuda,
@@ -18,6 +20,12 @@ __all__ = [
     "dechirp_power",
     "dechirp_power_cuda",
     "dechirp_power_dispatch",
+    "fir_decimate",
+    "fir_decimate_cuda",
+    "fir_decimate_dispatch",
+    "nco_mix",
+    "nco_mix_cuda",
+    "nco_mix_dispatch",
     "viterbi_forward",
     "viterbi_forward_cuda",
     "viterbi_forward_dispatch",

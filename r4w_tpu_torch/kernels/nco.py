@@ -1,0 +1,104 @@
+"""Oscillator mix (NCO): plain PyTorch version and Hopper kernel.
+
+The kernel, ``csrc/nco_mix.cu``, replaces
+``r4w_tpu/kernels/pallas_kernels.py:nco_mix`` (:244). Both compute
+``x·gain·e^{j·ph}`` with ``ph[n] = ω·float(n) + φ₀`` along the last axis
+(n restarts at 0 in every row), the carrier made on the fly and never
+stored. ω = float32(2π·f/fs), φ₀ and the gain are rounded to float32 on
+the host, and the phase takes the reference's float32 roundings: the
+product rounded, then the sum rounded, never one fused multiply-add. At
+the phases a long stream reaches, one ulp of the phase is a sizeable
+angle, so a fused product-sum would already be visible. The kernel is
+bound by device-memory bytes; its design is in the source's header.
+
+`nco_mix_dispatch` is what the mixers call: the plain version for a
+tensor on the CPU, the kernel for a tensor on a CUDA device, and an error
+for anything else. It never falls back from the kernel to the plain
+version. ``nco_mix.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from r4w_tpu_torch.core.hostio import cis
+from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE
+from r4w_tpu_torch.kernels import _build
+
+
+def omega(freq_hz: float, sample_rate: float) -> float:
+    """Radians per sample, float32(2π·f/fs), as a Python float."""
+    return float(np.float32(2.0 * np.pi * freq_hz / sample_rate))
+
+
+def nco_phase(n: int, freq_hz: float, sample_rate: float, phase0: float = 0.0,
+              device=None) -> torch.Tensor:
+    """(n,) float32 phase ω·float(j) + φ₀: the product and the sum each rounded."""
+    index = torch.arange(n, dtype=REAL_DTYPE, device=device)
+    return index * omega(freq_hz, sample_rate) + float(np.float32(phase0))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load_library("nco_mix").r4w_nco_mix
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nco_mix(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: float = 0.0,
+            gain: float = 1.0) -> torch.Tensor:
+    """Plain version: (..., N) complex64 -> x·(gain·cis(ph)), ph from `nco_phase`."""
+    ph = nco_phase(x.shape[-1], freq_hz, sample_rate, phase0, device=x.device)
+    return x * (float(np.float32(gain)) * cis(ph))
+
+
+nco_mix.launches = 0  # launches of the Hopper kernel, counted by nco_mix_cuda
+
+
+def nco_mix_cuda(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: float = 0.0,
+                 gain: float = 1.0) -> torch.Tensor:
+    """Hopper kernel: (B, N) complex64 -> (B, N) complex64."""
+    if x.device.type != "cuda":
+        raise ValueError(f"nco_mix_cuda needs a tensor on a CUDA device, got {x.device}")
+    if x.dtype != IQ_DTYPE:
+        raise TypeError(f"nco_mix_cuda takes complex64, got {x.dtype}")
+    if x.ndim != 2:
+        raise ValueError(f"x must be (rows, N), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("nco_mix_cuda needs a contiguous tensor")
+    rows, n = x.shape
+    out = torch.empty_like(x)
+    if rows * n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(x.data_ptr(), out.data_ptr(), rows, n, omega(freq_hz, sample_rate),
+                        float(np.float32(phase0)), float(np.float32(gain)), stream)
+    if err != 0:
+        raise RuntimeError(f"r4w_nco_mix launch failed with cudaError {err}")
+    nco_mix.launches += 1
+    return out
+
+
+def nco_mix_dispatch(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: float = 0.0,
+                     gain: float = 1.0) -> torch.Tensor:
+    """(..., N) complex64 mixed by the oscillator, by the samples' device.
+
+    CPU: the plain version. CUDA: the Hopper kernel, on the leading axes
+    flattened into rows. Any other device raises.
+    """
+    if x.device.type == "cpu":
+        return nco_mix(x, freq_hz, sample_rate, phase0, gain)
+    if x.device.type != "cuda":
+        raise ValueError(f"no nco_mix path for device {x.device}")
+    lead, n = x.shape[:-1], x.shape[-1]
+    y = nco_mix_cuda(x.reshape(math.prod(lead), n).contiguous(), freq_hz, sample_rate,
+                     phase0, gain)
+    return y.reshape(x.shape)

@@ -14,11 +14,11 @@ import functools
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.types import SYMBOL_DTYPE, resolve_device
+from r4w_tpu_torch.core.types import SYMBOL_DTYPE, resolve_device, to_tensor
 
 
 def _int(x) -> torch.Tensor:
-    return torch.as_tensor(x).to(SYMBOL_DTYPE)
+    return to_tensor(x, SYMBOL_DTYPE)
 
 
 def _arange(start: int, end: int, step: int, like: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from r4w_tpu_torch.core.types import REAL_DTYPE
+from r4w_tpu_torch.core.types import REAL_DTYPE, to_tensor
 
 
 def batch_modulate(modulate_fn, payloads) -> torch.Tensor:
@@ -19,12 +19,12 @@ def batch_modulate(modulate_fn, payloads) -> torch.Tensor:
 
     `modulate_fn` takes the batch dimension, as the port's modulators do.
     """
-    return modulate_fn(torch.as_tensor(payloads))
+    return modulate_fn(to_tensor(payloads))
 
 
 def batch_demodulate(demodulate_fn, bursts):
     """Demodulate (B, N) IQ bursts with a batch-aware `demodulate_fn`."""
-    return demodulate_fn(torch.as_tensor(bursts))
+    return demodulate_fn(to_tensor(bursts))
 
 
 def monte_carlo_ber(trial_ber, n_lanes: int, snrs_db, *,
@@ -47,7 +47,7 @@ def ber_sweep(ber_fn, payload, snrs_db, n_lanes: int = 128,
     `lora.loopback_ber` with its params bound). The noise comes from a
     generator seeded with `seed` on the payload's device.
     """
-    payload = torch.as_tensor(payload)
+    payload = to_tensor(payload)
     generator = torch.Generator(device=payload.device).manual_seed(seed)
     grid = monte_carlo_ber(lambda snr, gen: ber_fn(payload, snr, generator=gen),
                            n_lanes, snrs_db, generator=generator)

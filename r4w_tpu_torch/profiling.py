@@ -9,8 +9,10 @@ device events, and device milliseconds per event name (cut to its first
 96 characters), largest first.
 
 Cells: the LoRa Monte-Carlo sweep at SF7 and at SF12 (one ``ber_sweep``
-call at ``entry.lora_sweep``'s shape) and the decode bench (one
-``viterbi_decode_mxu`` at ``entry.viterbi_bench``'s 4096 × 2048 shape).
+call at ``entry.lora_sweep``'s shape), the decode bench (one
+``viterbi_decode_mxu`` at ``entry.viterbi_bench``'s 4096 × 2048 shape)
+and the DDC bench (one ``digital_down_convert`` at ``entry.ddc_bench``'s
+64 × 2^20 shape).
 It needs a CUDA card; it has no CPU path.
 """
 
@@ -26,9 +28,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from r4w_tpu_torch.entry import (SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB, VITERBI_INFO_BITS,
-                                 VITERBI_LANES, sweep_lanes)
+from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, SWEEP_PAYLOAD_BYTES,
+                                 SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_signal,
+                                 sweep_lanes)
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.parallel import ber_sweep
 from r4w_tpu_torch.waveforms import lora
 
@@ -74,6 +78,8 @@ def cells(device: torch.device) -> dict:
     bits = np.random.default_rng(6).integers(0, 2, (VITERBI_LANES, VITERBI_INFO_BITS))
     soft = 1.0 - 2.0 * conv_encode(torch.from_numpy(bits.astype(np.int32)).to(device)).float()
     runs["viterbi_bench"] = functools.partial(viterbi_decode_mxu, soft, soft=True)
+    runs["ddc_bench"] = functools.partial(digital_down_convert, ddc_signal(device), DDC_CENTER_HZ,
+                                          DDC_RATE_HZ, DDC_DECIMATION)
     return runs
 
 

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.types import IQ_DTYPE, SYMBOL_DTYPE, resolve_device
+from r4w_tpu_torch.core.types import IQ_DTYPE, SYMBOL_DTYPE, resolve_device, to_tensor
 from r4w_tpu_torch.waveforms.lora.params import LoRaParams
 
 
@@ -62,7 +62,7 @@ def symbol_chirps(params: LoRaParams, symbols) -> torch.Tensor:
     out[s, i] = base_up[(i + symbol[s]*osf) % N], on the symbols' device.
     """
     n = params.samples_per_symbol
-    syms = torch.as_tensor(symbols).to(SYMBOL_DTYPE)
+    syms = to_tensor(symbols, SYMBOL_DTYPE)
     shift = (syms.long() * params.oversample) % n
     idx = (torch.arange(n, device=syms.device) + shift[..., None]) % n
     return base_upchirp(params, syms.device)[idx]

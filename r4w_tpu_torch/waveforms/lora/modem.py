@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core.types import (DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE,
-                                      resolve_device)
+                                      resolve_device, to_tensor)
 from r4w_tpu_torch.kernels.dechirp import dechirp_power_dispatch
 from r4w_tpu_torch.ops import coding
 from r4w_tpu_torch.waveforms.lora import chirp as chirp_mod
@@ -90,7 +90,7 @@ def demodulate_symbols(params: LoRaParams, samples):
     """
     n = params.samples_per_symbol
     k = params.chips_per_symbol
-    samples = torch.as_tensor(samples).to(IQ_DTYPE)
+    samples = to_tensor(samples, IQ_DTYPE)
     if samples.shape[-1] != n:
         s = samples.shape[-1] // n
         samples = samples[..., : s * n].reshape(*samples.shape[:-1], s, n)
@@ -146,7 +146,7 @@ def loopback_ber(params: LoRaParams, payload, snr_db, *,
     payload is a Monte-Carlo sweep. Returns the BER per batch element.
     Pass exactly one of `generator` and `noise` (see `channel.awgn`).
     """
-    payload = torch.as_tensor(payload).to(SYMBOL_DTYPE)
+    payload = to_tensor(payload, SYMBOL_DTYPE)
     tx = modulate(params, payload, include_preamble=False, device=payload.device)
     snr = torch.as_tensor(snr_db, dtype=REAL_DTYPE, device=tx.device)
     batch = torch.broadcast_shapes(tx.shape[:-1], snr.shape)

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from r4w_tpu_torch.core.types import DEFAULT_DEVICE, CommonParams
+from r4w_tpu_torch.core.types import DEFAULT_DEVICE, CommonParams, to_tensor
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.base import (
     DemodResult,
@@ -57,7 +57,8 @@ class LoRaWaveform(Waveform):
         return lora.modulate(self.params, payload, device=self.device)
 
     def demodulate(self, samples) -> DemodResult:
-        samples = torch.as_tensor(samples)
+        if not isinstance(samples, torch.Tensor):
+            samples = to_tensor(samples, device=self.device)
         n_pre = self.params.n_preamble_samples()
         n_sym = self.params.samples_per_symbol
         # Skip the preamble if the buffer is long enough to contain one

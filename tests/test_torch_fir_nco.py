@@ -1,0 +1,181 @@
+"""The port's FIR-decimate and NCO kernel modules against ``pallas_kernels``.
+
+On the CPU each module runs its plain PyTorch version, held here against
+the Pallas kernels in interpret mode (1-D, real for the FIR, as the
+reference's kernels take) and against float64 numpy for what the port's
+kernels add: complex input, a batch axis, K = 1 and N < K. The CUDA
+kernels run only on a card: their tests are marked ``cuda`` and skip
+elsewhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from r4w_tpu.kernels import pallas_kernels
+from r4w_tpu_torch.kernels import fir, nco
+
+ABS_TOL_FIR = 1e-4  # tests/test_kernels_sync_arq.py::test_fir_decimate_kernel_matches_numpy
+ABS_TOL_NCO = 1e-3  # tests/test_kernels_sync_arq.py::test_nco_mix_kernel
+REL_TOL = 1e-5      # of max|y|: float32 sums of up to 64 terms against float64
+
+
+def _correlate(x: np.ndarray, taps: np.ndarray, factor: int) -> np.ndarray:
+    """float64 reference: np.correlate(row, taps, 'valid')[::factor] per row."""
+    rows = x.reshape(-1, x.shape[-1]).astype(np.complex128)
+    out = [np.correlate(r, taps.astype(np.float64), "valid")[::factor] if len(r) >= len(taps)
+           else np.zeros(0) for r in rows]
+    return np.stack(out).reshape(*x.shape[:-1], -1)
+
+
+def _noise(rng, shape, complex_: bool) -> np.ndarray:
+    x = rng.standard_normal(shape)
+    if complex_:
+        x = x + 1j * rng.standard_normal(shape)
+    return x.astype(np.complex64 if complex_ else np.float32)
+
+
+@pytest.mark.parametrize("n,k,factor", [(997, 31, 1), (997, 31, 4), (4096, 63, 8)])
+def test_plain_fir_matches_pallas_interpret(n, k, factor):
+    rng = np.random.default_rng(1)
+    taps = rng.standard_normal(k).astype(np.float32)
+    sig = rng.standard_normal(n).astype(np.float32)
+    want = np.asarray(pallas_kernels.fir_decimate(jnp.asarray(sig), jnp.asarray(taps),
+                                                  factor=factor, interpret=True))
+    got = fir.fir_decimate(torch.from_numpy(sig), torch.from_numpy(taps), factor).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape == ((n - k) // factor + 1,)
+    assert np.max(np.abs(got - want)) < ABS_TOL_FIR
+    assert np.max(np.abs(got - _correlate(sig, taps, factor).real)) < ABS_TOL_FIR
+
+
+@pytest.mark.parametrize("shape,k,factor,complex_", [
+    ((3, 500), 17, 3, True),      # complex, batched, ragged
+    ((3, 1001), 64, 8, True),
+    ((2, 2, 257), 9, 5, False),   # two batch axes
+    ((1, 50), 1, 2, True),        # K = 1
+    ((2, 31), 31, 4, True),       # N = K: one output
+    ((2, 10), 31, 1, True),       # N < K: no outputs
+    ((4, 300), 300, 1, False),
+    ((2, 3000), 1025, 7, True),   # more taps than one staged chunk
+])
+def test_plain_fir_complex_batched_and_edges(shape, k, factor, complex_):
+    rng = np.random.default_rng(k * factor)
+    x = _noise(rng, shape, complex_)
+    taps = rng.standard_normal(k).astype(np.float32)
+    got = fir.fir_decimate(torch.from_numpy(x), torch.from_numpy(taps), factor).numpy()
+    want = _correlate(x, taps, factor)
+    assert got.dtype == x.dtype
+    assert got.shape == shape[:-1] + (fir.n_outputs(shape[-1], k, factor),) == want.shape
+    if want.size:
+        assert np.max(np.abs(got - want)) <= REL_TOL * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("n,freq_hz,rate,phase0,gain", [
+    (3000, 2500.0, 1e6, 1.0, 2.0),         # the reference test's case
+    (1 << 16, -1e6 / 8, 1e6, 0.0, 1.0),    # f = -fs/8 at 2^16 samples
+])
+def test_plain_nco_matches_pallas_interpret(n, freq_hz, rate, phase0, gain):
+    rng = np.random.default_rng(2)
+    x = _noise(rng, (n,), True)
+    want = np.asarray(pallas_kernels.nco_mix(jnp.asarray(x), freq_hz, rate, phase0=phase0,
+                                             gain=gain, interpret=True))
+    got = nco.nco_mix(torch.from_numpy(x), freq_hz, rate, phase0, gain).numpy()
+    assert got.dtype == np.complex64 and got.shape == want.shape
+    assert np.max(np.abs(got - want)) < ABS_TOL_NCO
+    t = np.arange(n)
+    exact = x * gain * np.exp(1j * (phase0 + 2 * np.pi * freq_hz / rate * t))
+    if n <= 3000:  # float32 phase stays within 1e-3 rad of the exact one
+        assert np.max(np.abs(got - exact)) < ABS_TOL_NCO
+
+
+@pytest.mark.parametrize("freq_hz,rate,phase0", [
+    (2500.0, 1e6, 1.0), (-30.72e6 / 8, 30.72e6, 0.0), (30.72e6 / 4, 30.72e6, 1.0),
+    (-7.68e6, 30.72e6, 0.3)])
+def test_nco_phase_takes_the_reference_roundings(freq_hz, rate, phase0):
+    """ph = round(round(ω·float(n)) + φ₀) in float32, bit for bit, at 2^20
+    samples, where a fused multiply-add would move it at some indices."""
+    n = 1 << 20
+    got = nco.nco_phase(n, freq_hz, rate, phase0, device="cpu").numpy()
+    w, p0 = np.float32(2 * np.pi * freq_hz / rate), np.float32(phase0)
+    want = np.arange(n, dtype=np.float32) * w + p0
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    # the reference's own eager ops give the same bits
+    ref = np.asarray(jnp.float32(p0) + jnp.float32(w) * jnp.arange(n, dtype=jnp.float32))
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    assert nco.omega(freq_hz, rate) == float(w)
+
+
+def test_cpu_tensors_run_plain_versions_and_launch_nothing():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_noise(rng, (2, 400), True))
+    taps = torch.from_numpy(rng.standard_normal(15).astype(np.float32))
+    before = (fir.fir_decimate.launches, nco.nco_mix.launches)
+    torch.testing.assert_close(fir.fir_decimate_dispatch(x, taps, 3),
+                               fir.fir_decimate(x, taps, 3), rtol=0, atol=0)
+    torch.testing.assert_close(nco.nco_mix_dispatch(x, 1e3, 1e5, 0.5, 2.0),
+                               nco.nco_mix(x, 1e3, 1e5, 0.5, 2.0), rtol=0, atol=0)
+    assert (fir.fir_decimate.launches, nco.nco_mix.launches) == before
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros(2, 64, dtype=torch.complex64)
+    taps = torch.ones(5)
+    before = (fir.fir_decimate.launches, nco.nco_mix.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fir.fir_decimate_cuda(x, taps, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        nco.nco_mix_cuda(x, 1e3, 1e5)
+    with pytest.raises(ValueError, match="no fir_decimate path"):
+        fir.fir_decimate_dispatch(x.to("meta"), taps.to("meta"), 2)
+    with pytest.raises(ValueError, match="no nco_mix path"):
+        nco.nco_mix_dispatch(x.to("meta"), 1e3, 1e5)
+    with pytest.raises(ValueError, match="factor >= 1"):
+        fir.fir_decimate(x, taps, 0)
+    with pytest.raises(ValueError, match="K >= 1"):
+        fir.fir_decimate(x, taps[:0], 1)
+    assert (fir.fir_decimate.launches, nco.nco_mix.launches) == before
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k,factor,complex_", [
+    (1, 997, 31, 1, False), (3, 997, 31, 4, True), (64, 4109, 63, 8, True),
+    (2, 4109, 1025, 2, False), (5, 3000, 4, 32, True), (1, 10, 31, 1, True)])
+def test_fir_kernel_matches_plain_on_card(rows, n, k, factor, complex_):
+    dev = _card()
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(_noise(rng, (rows, n), complex_)).to(dev)
+    taps = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(dev)
+    before = fir.fir_decimate.launches
+    got = fir.fir_decimate_cuda(x, taps, factor)
+    want = fir.fir_decimate(x, taps, factor)
+    torch.cuda.synchronize()
+    n_out = fir.n_outputs(n, k, factor)
+    assert fir.fir_decimate.launches == before + (1 if n_out else 0)
+    assert got.shape == want.shape == (rows, n_out) and got.dtype == x.dtype
+    if n_out:
+        assert float((got - want).abs().max()) <= REL_TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,freq_hz,phase0,gain", [
+    (1, 3000, 2500.0, 1.0, 2.0), (4, 1 << 20, -0.125e6, 0.0, 1.0), (3, 4097, 0.25e6, 1.0, 1.0)])
+def test_nco_kernel_matches_plain_on_card(rows, n, freq_hz, phase0, gain):
+    dev = _card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(_noise(rng, (rows, n), True)).to(dev)
+    before = nco.nco_mix.launches
+    got = nco.nco_mix_cuda(x, freq_hz, 1e6, phase0, gain)
+    want = nco.nco_mix(x, freq_hz, 1e6, phase0, gain)
+    odd = nco.nco_mix_cuda(x.reshape(-1)[1:].reshape(1, -1), freq_hz, 1e6)  # 8-byte aligned
+    torch.cuda.synchronize()
+    assert nco.nco_mix.launches == before + 2
+    assert float((got - want).abs().max()) <= REL_TOL * gain * float(x.abs().max())
+    want_odd = nco.nco_mix(x.reshape(-1)[1:].reshape(1, -1), freq_hz, 1e6)
+    assert float((odd - want_odd).abs().max()) <= REL_TOL * float(x.abs().max())

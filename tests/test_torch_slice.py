@@ -24,7 +24,8 @@ from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import types
-from r4w_tpu_torch.entry import entry, lora_sweep, sweep_lanes, viterbi_bench, waterfall_snr_db
+from r4w_tpu_torch.entry import (ddc_bench, entry, lora_sweep, sweep_lanes, viterbi_bench,
+                                 waterfall_snr_db)
 from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, monte_carlo_ber
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora_waveform import LoRaWaveform
@@ -137,7 +138,7 @@ def test_entry_points_default_to_the_card():
     """Read without a card: every entry point that creates tensors defaults
     to CUDA, and None resolves to it with no fallback to the CPU."""
     cuda = torch.device("cuda")
-    for fn in (create_waveform, entry, lora_sweep, viterbi_bench, lora.modulate):
+    for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
@@ -150,6 +151,9 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch, r4w_tpu_torch.entry, r4w_tpu_torch.convert\n"
             "import r4w_tpu_torch.parallel, r4w_tpu_torch.kernels, r4w_tpu_torch.fec\n"
             "import r4w_tpu_torch.ops.modem, r4w_tpu_torch.ops.spreading, r4w_tpu_torch.profiling\n"
+            "import r4w_tpu_torch.ops.filters, r4w_tpu_torch.ops.resample\n"
+            "import r4w_tpu_torch.ops.stream_math, r4w_tpu_torch.ops.filters2\n"
+            "import r4w_tpu_torch.kernels.fir, r4w_tpu_torch.kernels.nco, r4w_tpu_torch.core.windows\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
             "print(bad)\n"
