@@ -38,7 +38,7 @@ from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC
                                  lora_sweep, sweep_lanes, viterbi_bench)
 from r4w_tpu_torch.fec import convolutional
 from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
-from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda
+from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
 from r4w_tpu_torch.ops import filters, filters2, resample, stream_math
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora import chirp
@@ -53,6 +53,15 @@ PLAIN_VITERBI_CALLS = 1  # the plain forward is a 2054-step loop of small launch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 VITERBI_CODES = {5: (0o23, 0o35), 7: (0o171, 0o133)}
+# every constraint the forward kernel takes at R = 2, K = 7 at R = 3, and two codes
+# whose generators do not all tap both ends of the register
+VITERBI_ALL_CODES = ((3, (0o7, 0o5)), (4, (0o17, 0o13)), (5, (0o23, 0o35)), (6, (0o53, 0o75)),
+                     (7, (0o171, 0o133)), (8, (0o247, 0o371)), (7, (0o133, 0o171, 0o165)),
+                     (4, (0o16, 0o13)), (7, (0o170, 0o133)))
+VITERBI_ALL_LANES = (1, 3, 130, 2100, 4096)
+VITERBI_RAGGED_STEPS = (37, 300)  # not multiples of any staging chunk (32 or 16 steps)
+MIL_STEPS = 1440  # one lane's trellis at 2400 bps, short interleave: MIL-STD-188-110's plan
+DECHIRP_RAGGED_ROWS_SF7 = 100_003
 MIL_DATA = bytes([0xA7, 0x1B, 0x3C, 0xD2, 0x55, 0x00, 0xFF, 0x42])  # tests/test_hf_modems.py:23
 MIL_CASES = ((2400, 14.0), (1200, 8.0), (600, 5.0), (75, -4.0))  # rate bps, SNR dB
 FIR_REL_TOL = 1e-5  # max|kernel - plain| / max|plain|: FP32 sums in the same tap order
@@ -252,6 +261,35 @@ def check_nco_kernel(dev: torch.device) -> dict:
             "bound_by": b_by, "shape": list(x.shape)}
 
 
+def check_dechirp_ragged(dev: torch.device) -> None:
+    """Phase 3, ragged blocks: at every SF, row counts that are not a multiple of
+    the kernel's rows per block (1, 3, 5 and 5·rows-per-block + 3 rows, and
+    100,003 at SF7), held to the same bars as the full blocks."""
+    worst, cases = 0.0, []
+    for sf in range(5, 13):
+        params = lora.LoRaParams(sf=sf)
+        k = params.chips_per_symbol
+        down = chirp.base_downchirp(params, dev)
+        gen = torch.Generator(device=dev).manual_seed(200 + sf)
+        per_block = launch_plan(k).rows_per_block
+        counts = {1, 3, 5, 5 * per_block + 3} | ({DECHIRP_RAGGED_ROWS_SF7} if sf == 7 else set())
+        for rows in sorted(counts):
+            syms = torch.randint(0, k, (rows,), generator=gen, device=dev, dtype=torch.int32)
+            clean = chirp.symbol_chirps(params, syms)
+            for label, x in (("chirps", clean), ("noise", randn_iq((rows, k), gen))):
+                got, ref = dechirp_power_cuda(x, down), dechirp_power(x, down)
+                torch.cuda.synchronize()
+                _, rel = rel_err(got, ref)
+                worst = max(worst, rel)
+                if not rel < REL_TOL:
+                    raise AssertionError(f"SF{sf} {rows} {label} rows: max|Δ|/max(ref) {rel:.3g}")
+                if label == "chirps" and not torch.equal(got.argmax(-1).int(), syms):
+                    raise AssertionError(f"SF{sf} {rows} rows: argmax differs on clean chirps")
+        cases.append(f"SF{sf} {'/'.join(map(str, sorted(counts)))}")
+    phase("3 kernel", f"ragged blocks ({'; '.join(cases)} rows) match the plain version: worst "
+          f"max|Δ|/max(ref) {worst:.3g} < {REL_TOL}, argmax equal to the sent symbols")
+
+
 def drive_ddc_path(dev: torch.device) -> None:
     """Phase 14: the DDC path through the port's entry points."""
     bench = ddc_bench(dev)
@@ -318,28 +356,29 @@ def drive_ddc_path(dev: torch.device) -> None:
           f"max|Δ|/max|plain| {rel:.3g}")
 
 
-def noisy_branch_metrics(lanes: int, steps: int, constraint: int, seed: int):
-    """(steps, 4, lanes) branch metrics of 1 - 2·coded + 0.4·N(0, 1), made on the card."""
+def noisy_branch_metrics(lanes: int, steps: int, constraint: int, seed: int, polys=None):
+    """(steps, 2^R, lanes) branch metrics of 1 - 2·coded + 0.4·N(0, 1), made on the card."""
+    polys = VITERBI_CODES[constraint] if polys is None else polys
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_info = steps - (constraint - 1)
     bits = torch.randint(0, 2, (lanes, n_info), generator=gen, device="cuda",
                          dtype=torch.int32)
-    coded = convolutional.conv_encode(bits, constraint, VITERBI_CODES[constraint])
+    coded = convolutional.conv_encode(bits, constraint, polys)
     soft = 1.0 - 2.0 * coded.float() + 0.4 * torch.randn(coded.shape, generator=gen,
                                                          device="cuda")
-    return convolutional._branch_metrics(soft.reshape(lanes, steps, 2))
+    return convolutional._branch_metrics(soft.reshape(lanes, steps, len(polys)))
 
 
-def check_viterbi(bm: torch.Tensor, constraint: int) -> dict:
+def check_viterbi(bm: torch.Tensor, constraint: int, polys=None) -> dict:
     """Both kernels against their plain versions on `bm`, with torch.equal."""
-    polys = VITERBI_CODES[constraint]
+    polys = VITERBI_CODES[constraint] if polys is None else polys
     dec, final = viterbi.viterbi_forward_cuda(bm, constraint, polys)
     want_dec, want_final = viterbi.viterbi_forward(bm, constraint, polys)
     start = torch.argmax(want_final, dim=0).to(torch.int32)
     bits = [viterbi.viterbi_traceback_cuda(want_dec, constraint, polys, s) for s in (None, start)]
     want_bits = [viterbi.viterbi_traceback(want_dec, constraint, polys, s) for s in (None, start)]
     torch.cuda.synchronize()
-    label = f"K={constraint} (T, L)=({bm.shape[0]}, {bm.shape[2]})"
+    label = f"K={constraint} R={len(polys)} (T, L)=({bm.shape[0]}, {bm.shape[2]})"
     if not (torch.equal(dec, want_dec) and torch.equal(final, want_final)):
         raise AssertionError(f"{label}: viterbi_forward kernel differs from the plain version")
     if not all(torch.equal(a, b) for a, b in zip(bits, want_bits)):
@@ -352,9 +391,11 @@ def check_viterbi(bm: torch.Tensor, constraint: int) -> dict:
 def check_viterbi_kernels() -> dict:
     """Phase 8: both Viterbi kernels equal their plain versions bit for bit,
     for K = 5 and 7 at small shapes (one lane, as MIL-STD-188-110 decodes,
-    a ragged block, several blocks) and at the decode bench's shape, where
-    they are also timed beside the plain versions. Returns the kernel-table
-    entries of both kernels (times, bounds and errors at the bench shape)."""
+    a ragged block, several blocks), for every K = 3-8 at R = 2 and K = 7 at
+    R = 3 with ragged lanes and steps, and at the decode bench's shape, where
+    they are also timed beside the plain versions; the forward kernel also at
+    MIL-STD-188-110's one-lane plan. Returns the kernel-table entries of both
+    kernels (times, bounds and errors at the bench shape)."""
     cases = 0
     for constraint in VITERBI_CODES:
         for lanes in (1, 3, 130, 2100):
@@ -364,6 +405,18 @@ def check_viterbi_kernels() -> dict:
                 cases += 1
     phase("8 viterbi", f"{cases} cases, K=5 and 7, lanes 1/3/130/2100, T K+1/255/512: "
           f"decisions, final metrics and bits equal the plain versions (torch.equal)")
+    cases = 0
+    for constraint, polys in VITERBI_ALL_CODES:
+        for lanes in VITERBI_ALL_LANES:
+            for steps in VITERBI_RAGGED_STEPS:
+                bm = noisy_branch_metrics(lanes, steps, constraint, steps + lanes, polys)
+                check_viterbi(bm, constraint, polys)
+                cases += 1
+    phase("8 viterbi", f"{cases} cases, K=3-8 at R=2, K=7 at R=3 and two codes without both "
+          f"end taps, lanes "
+          f"{'/'.join(map(str, VITERBI_ALL_LANES))}, T {'/'.join(map(str, VITERBI_RAGGED_STEPS))} "
+          f"(ragged chunks and blocks): decisions, final metrics and bits equal the plain "
+          f"versions (torch.equal)")
 
     constraint, polys = 7, VITERBI_CODES[7]
     steps, lanes = VITERBI_INFO_BITS + constraint - 1, VITERBI_LANES
@@ -387,8 +440,24 @@ def check_viterbi_kernels() -> dict:
     groups = dec.shape[1]
     states = 1 << (constraint - 1)
     n_codes = bm.shape[1]
-    fwd_bound = bound(4 * (steps * n_codes * lanes + steps * groups * lanes + states * lanes),
-                      3 * states * steps * lanes)  # 2 adds + 1 compare per target state
+
+    def forward_bound(steps, lanes):  # 2 adds + 1 compare per target state
+        return bound(4 * (steps * n_codes * lanes + steps * groups * lanes + states * lanes),
+                     3 * states * steps * lanes)
+
+    fwd_bound = forward_bound(steps, lanes)
+    # MIL-STD-188-110's plan: one lane, one warp, latency-bound
+    one = noisy_branch_metrics(1, MIL_STEPS, constraint, seed=7)
+    check_viterbi(one, constraint)
+    plain1 = [cuda_ms(lambda: viterbi.viterbi_forward(one, constraint, polys), PLAIN_VITERBI_CALLS)]
+    kern1 = [cuda_ms(lambda: viterbi.viterbi_forward_cuda(one, constraint, polys))
+             for _ in range(2)]
+    plain1.append(cuda_ms(lambda: viterbi.viterbi_forward(one, constraint, polys),
+                          PLAIN_VITERBI_CALLS))
+    bound1, by1 = forward_bound(MIL_STEPS, 1)
+    phase("8 timing", f"viterbi_forward at {tuple(one.shape)} (one lane): kernel {kern1[0]:.4f}/"
+          f"{kern1[1]:.4f} ms (mean of {TIMED_LAUNCHES}), plain {plain1[0]:.4f}/{plain1[1]:.4f} "
+          f"ms; bound {bound1:.4f} ms by {by1}, {100 * bound1 / (sum(kern1) / 2):.2f}% of it")
     tb_bound = bound(4 * 2 * steps * lanes,  # one decision word read, one bit written
                      5 * steps * lanes)
     table = {}
@@ -402,6 +471,10 @@ def check_viterbi_kernels() -> dict:
               f"(mean of {TIMED_LAUNCHES}), plain {plain[0]:.4f}/{plain[1]:.4f} ms (mean of "
               f"{PLAIN_VITERBI_CALLS}); bound {b_ms:.4f} ms by {b_by}, "
               f"{100 * b_ms / table[name]['ms']:.2f}% of it; max|Δ| {err}")
+    table["viterbi_forward"].update({"ms_one_lane": sum(kern1) / 2,
+                                     "plain_ms_one_lane": sum(plain1) / 2,
+                                     "bound_ms_one_lane": bound1,
+                                     "shape_one_lane": list(one.shape)})
     return table
 
 
@@ -451,6 +524,7 @@ def main() -> None:
             raise AssertionError(f"SF{sf}: argmax differs on clean chirps")
     phase("3 kernel", f"SF5-SF12 match the plain version: worst max|Δ|/max(ref) "
           f"{worst_rel:.3g} < {REL_TOL}, argmax identical on clean chirps")
+    check_dechirp_ragged(dev)
 
     timings = {}
     for sf in (7, 12):
@@ -471,13 +545,16 @@ def main() -> None:
         plain = [cuda_ms(lambda: dechirp_power(x, down))]
         kern = [cuda_ms(lambda: dechirp_power_cuda(x, down)) for _ in range(2)]
         plain.append(cuda_ms(lambda: dechirp_power(x, down)))
+        # the yardstick: the cuFFT transform alone, on rows already dechirped
+        mixed = x * down
+        library = cuda_ms(lambda: torch.fft.fft(mixed, dim=-1))
         timings[sf] = {"rows": rows, "k": k, "abs_err": abs_err, "rel_err": rel,
-                       "ms": sum(kern) / 2, "plain_ms": sum(plain) / 2}
+                       "ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "library_ms": library}
         phase("3 timing", f"SF{sf} sweep shape ({rows}, {k}): kernel "
               f"{kern[0]:.4f}/{kern[1]:.4f} ms, plain cuFFT path {plain[0]:.4f}/"
-              f"{plain[1]:.4f} ms per call (mean of {TIMED_LAUNCHES}); max|Δ| "
-              f"{abs_err:.4g}, /max(ref) {rel:.3g}")
-        del x
+              f"{plain[1]:.4f} ms, cuFFT transform only (torch.fft.fft) {library:.4f} ms per "
+              f"call (mean of {TIMED_LAUNCHES}); max|Δ| {abs_err:.4g}, /max(ref) {rel:.3g}")
+        del x, mixed
 
     # The LoRa path starts here: only its launches count.
     zero_launch_counts()
@@ -594,12 +671,14 @@ def main() -> None:
         "plain_ms": t7["plain_ms"],
         "bound_ms": bound7,
         "bound_by": by7,
-        "library_ms": None,
+        "library_ms": t7["library_ms"],
+        "library": "cuFFT transform only: torch.fft.fft on the pre-dechirped rows",
         "shape": [t7["rows"], t7["k"]],
         "max_rel_err": max(t["rel_err"] for t in timings.values()),
         "ms_sf12": timings[12]["ms"],
         "plain_ms_sf12": timings[12]["plain_ms"],
         "bound_ms_sf12": dechirp_bound(timings[12])[0],
+        "library_ms_sf12": timings[12]["library_ms"],
     }]
     for name, line, count in (("viterbi_forward", 403, fwd), ("viterbi_traceback", 479, tb)):
         kernels.append({

@@ -17,50 +17,59 @@
 // with W = 16 (or S when S < 16). Traceback walks back from a start state:
 // bits[t, l] = st >> (K-2); st = 2*(st & (S/2-1)) + decision bit of st.
 //
-// Both functions are bound by device-memory bytes: the forward pass moves
-// 4*C bytes of branch metrics in and 4*S/W bytes of decisions out per
-// (step, lane) for 3*S FP32 adds and compares; the traceback reads one
-// decision word and writes one bit per (step, lane). The design keeps the
-// path metrics off device memory for the whole frame, as the TPU kernel
-// kept them in VMEM:
+// Both functions are bound by device-memory bytes once latency is hidden:
+// the forward pass moves 4*C bytes of branch metrics in and 4*S/W bytes of
+// decisions out per (step, lane) for 3*S FP32 adds and compares (bound
+// 0.0807 ms at the decode bench's bm (2054, 4, 4096) at 3.35 TB/s); the
+// traceback reads one decision word and writes one bit per (step, lane).
+// The path metrics stay off device memory for the whole frame, as the TPU
+// kernel kept them in VMEM. The forward design:
 //
-// - One thread per lane, lanes on threadIdx.x, so each step's branch-
-//   metric loads and decision stores are coalesced in the (T, C, L) and
-//   (T, G, L) layouts. The thread loops over all T steps itself.
-// - The S path metrics live in registers: the kernel is a template on S
-//   and the butterfly loop is unrolled, so every metric index is a
-//   constant. The TPU kernel's 0/1 selection matmuls existed only because
-//   Mosaic has no gather; here the butterfly is plain indexing.
-// - The trellis is runtime data (any generator polynomials), so the
-//   codeword of each (state, bit) is not a constant. The (S, 2) code table
-//   travels as a kernel argument, which sits in constant memory and is
-//   read as an operand, holding the byte offset of each codeword in the
-//   thread's column of a small shared-memory stage of the step's C branch
-//   metrics. Each thread reads only its own column, so no barrier is
-//   needed.
-// - The next step's branch metrics are loaded before the current step's
-//   ACS, so their latency hides behind it.
-// - Decision words are built with shifts and ORs in registers.
+// - A group of G = min(S/2, 32) threads per lane, one butterfly m each (two
+//   at K = 8): a warp per lane at K = 7, several lanes a warp below, with
+//   shuffles of width G. Thread g holds the metrics of states g + u*G, the
+//   targets of its own butterflies. The sources 2m and 2m+1 of a butterfly
+//   sit in one slot of threads 2g and 2g+1 (mod G), so a step is two
+//   shuffles per slot pair, two add-compare-selects per butterfly and one
+//   __ballot_sync per target slot; the ballots are staged as they are and
+//   cut into decision words once per chunk. One lane's step is a short
+//   serial chain; the card hides it behind the other lanes' warps (~31
+//   warps an SM at 4096 lanes, against one warp an SM with a thread per
+//   lane). What then holds the kernel is instruction issue, so a step does
+//   only what must happen every step: cutting words waits for the chunk.
+// - A block is one warp or 256 threads (at most 32 lanes), chosen by the
+//   host (kernels/viterbi.py: forward_plan) and compiled in (LANES), so
+//   every staged address of a step is a constant offset. The block walks
+//   the frame in chunks of steps: branch metrics of the next chunk come in
+//   with cp.async into the other half of a double buffer while this
+//   chunk's steps run, and a chunk's decisions leave as rows of the
+//   block's lanes. The ragged last chunk and the ragged last block of
+//   lanes are masked.
+// - The (S, 2) code table travels as a kernel argument; each thread turns
+//   its four (eight at K = 8) codewords into shared-memory offsets once.
 // - FP32 adds and compares only, no fused multiply-add and no TF32, so the
 //   result is bit-exact against the plain PyTorch version.
 //
-// The traceback is one thread per lane as well. The state chain is serial,
-// but the decision words of a step do not depend on it: each thread loads
-// all G words of P steps at once, so the loads overlap, then walks the P
-// steps in registers, choosing its word with a select chain.
+// The traceback is one thread per lane, lanes on threadIdx.x, so each
+// step's loads and stores are coalesced in the (T, G, L) layout. The state
+// chain is serial, but the decision words of a step do not depend on it:
+// each thread loads all G words of P steps at once, so the loads overlap,
+// then walks the P steps in registers, choosing its word with a select
+// chain.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;      // lanes per block
+constexpr int kThreads = 32;      // lanes per block of the traceback
 constexpr int kMaxStates = 128;   // K <= 8
+constexpr int kStaticSharedBytes = 48 * 1024;  // a block's shared memory without opting in
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kUnreached = -1e9f;
 
-// Byte offset, within a thread's column of the staged branch metrics, of
-// the codeword emitted from state st on input bit b.
+// Codeword index emitted from state st on input bit b.
 struct CodeTable {
-  int offset[kMaxStates][2];
+  int code[kMaxStates][2];
 };
 
 template <int S>
@@ -69,66 +78,198 @@ struct Packing {
   static constexpr int kWords = S / kWidth;       // words per step, G
 };
 
-template <int S, int C>
-__global__ void __launch_bounds__(kThreads)
-viterbi_forward_kernel(const float* __restrict__ bm, const CodeTable table,
-                       int* __restrict__ dec, float* __restrict__ final_metrics,
-                       int steps, int lanes) {
-  constexpr int kHalf = S / 2;
-  constexpr int kWidth = Packing<S>::kWidth;
-  constexpr int kWords = Packing<S>::kWords;
-  __shared__ float staged[C * kThreads];  // staged[c * kThreads + threadIdx.x]
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at), "l"(src) : "memory");
+}
 
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= lanes) return;
-  const size_t n_lanes = static_cast<size_t>(lanes);
-  const char* column = reinterpret_cast<const char*>(staged + threadIdx.x);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  float metric[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) metric[s] = s == 0 ? 0.0f : kUnreached;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  float next[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) next[c] = steps > 0 ? bm[c * n_lanes + lane] : 0.0f;
-
-  for (int t = 0; t < steps; ++t) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) staged[c * kThreads + threadIdx.x] = next[c];
-    if (t + 1 < steps) {
-      const float* row = bm + static_cast<size_t>(t + 1) * C * n_lanes + lane;
-#pragma unroll
-      for (int c = 0; c < C; ++c) next[c] = row[c * n_lanes];
+// Stage the branch metrics of steps [t0, t0 + n_steps) of the block's lanes
+// as dst[(t * C + c) * LANES + l]; lanes past the end read as 0.
+template <int C, int LANES>
+__device__ __forceinline__ void stage_branch_metrics(float* dst, const float* __restrict__ bm,
+                                                     int t0, int n_steps, int lane0, int lanes) {
+  const int n = n_steps * C * LANES;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int l = i % LANES;
+    const int row = i / LANES;  // t * C + c
+    if (lane0 + l < lanes) {
+      cp_async4(dst + i, bm + (static_cast<size_t>(t0) * C + row) * lanes + lane0 + l);
+    } else {
+      dst[i] = 0.0f;
     }
+  }
+}
 
-    float updated[S];
-    unsigned word[kWords];
+template <int S, int C, int LANES>
+__global__ void viterbi_forward_kernel(const float* __restrict__ bm, const CodeTable table,
+                                       int* __restrict__ dec, float* __restrict__ final_metrics,
+                                       int steps, int lanes, int chunk) {
+  constexpr int kGroup = S / 2 < 32 ? S / 2 : 32;  // threads a lane
+  constexpr int kSlots = S / kGroup;               // metrics a thread: 2, or 4 at K = 8
+  constexpr int kPairs = kSlots / 2;               // butterflies a thread
+  constexpr int kWords = Packing<S>::kWords;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int warps = LANES * kGroup / 32;
+  constexpr int step_floats = C * LANES;
+  const int stage_floats = chunk * step_floats;
+  float* bm_stage = smem;  // two halves of stage_floats
+  // the step's ballots of each warp: ballot_stage[(t * warps + warp) * kSlots + u]
+  unsigned* ballot_stage = reinterpret_cast<unsigned*>(smem + 2 * stage_floats);
+
+  const int g = threadIdx.x % kGroup;
+  const int slot = threadIdx.x / kGroup;  // this lane's place in the block
+  const int lane0 = blockIdx.x * LANES;
+  const int lane = lane0 + slot;
+
+  // Thread g holds the metrics of states g + u*kGroup, u < kSlots: for its
+  // butterflies m = g + q*kGroup the targets m (slot q) and m + S/2 (slot
+  // q + kPairs). Butterfly m's sources 2m and 2m+1 sit in one slot pair
+  // (2q, 2q+1) of threads 2g and 2g+1 (mod kGroup): the low slot 2q if
+  // 2g < kGroup, else the high slot 2q+1. Each thread sends its low and
+  // its high metric to two different threads, so two shuffles per pair
+  // carry them all: in the first an even thread shows its low metric and an
+  // odd thread its high one, in the second the other way round.
+  const bool high = 2 * g >= kGroup;
+  const bool odd_thread = g & 1;
+  const int src_first = (high ? 2 * g + 1 : 2 * g) % kGroup;
+  const int src_second = (high ? 2 * g : 2 * g + 1) % kGroup;
+
+  // offset[q][b][0/1]: where, in a staged step, butterfly g + q*kGroup finds
+  // the branch metric of its even / odd predecessor on input bit b
+  int offset[kPairs][2][2];
 #pragma unroll
-    for (int g = 0; g < kWords; ++g) word[g] = 0u;
+  for (int q = 0; q < kPairs; ++q) {
+    const int m = g + q * kGroup;
 #pragma unroll
-    for (int m = 0; m < kHalf; ++m) {
+    for (int b = 0; b < 2; ++b) {
+      offset[q][b][0] = table.code[2 * m][b] * LANES + slot;
+      offset[q][b][1] = table.code[2 * m + 1][b] * LANES + slot;
+    }
+  }
+  float metric[kSlots];
+#pragma unroll
+  for (int u = 0; u < kSlots; ++u) metric[u] = g + u * kGroup == 0 ? 0.0f : kUnreached;
+
+  const int n_chunks = (steps + chunk - 1) / chunk;
+  if (n_chunks > 0) {
+    stage_branch_metrics<C, LANES>(bm_stage, bm, 0, min(chunk, steps), lane0, lanes);
+  }
+  cp_async_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int t0 = ch * chunk;
+    const int n_steps = min(chunk, steps - t0);
+    if (ch + 1 < n_chunks) {
+      stage_branch_metrics<C, LANES>(bm_stage + ((ch + 1) & 1) * stage_floats, bm, t0 + chunk,
+                                     min(chunk, steps - t0 - chunk), lane0, lanes);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk's group has landed; the next one may be in flight
+    __syncthreads();
+    // the branch metrics of butterfly q's even / odd predecessor on bit b,
+    // advanced one staged step at a time
+    const float* bm_at[kPairs][2][2];
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
-        const float a = metric[2 * m] +
-            *reinterpret_cast<const float*>(column + table.offset[2 * m][b]);
-        const float o = metric[2 * m + 1] +
-            *reinterpret_cast<const float*>(column + table.offset[2 * m + 1][b]);
-        const int target = b * kHalf + m;
-        const bool odd = o > a;
-        updated[target] = odd ? o : a;
-        word[target / kWidth] |= static_cast<unsigned>(odd) << (target % kWidth);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bm_at[q][b][e] = bm_stage + (ch & 1) * stage_floats + offset[q][b][e];
+        }
       }
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s) metric[s] = updated[s];
+    unsigned* ballot_at = ballot_stage + threadIdx.x / 32 * kSlots;
 
-    int* out = dec + static_cast<size_t>(t) * kWords * n_lanes + lane;
+    for (int t = 0; t < n_steps; ++t) {
+      float first[kPairs], second[kPairs];
 #pragma unroll
-    for (int g = 0; g < kWords; ++g) out[g * n_lanes] = static_cast<int>(word[g]);
+      for (int q = 0; q < kPairs; ++q) {
+        const float low = metric[2 * q], upper = metric[2 * q + 1];
+        first[q] = __shfl_sync(kFullMask, odd_thread ? upper : low, src_first, kGroup);
+        second[q] = __shfl_sync(kFullMask, odd_thread ? low : upper, src_second, kGroup);
+      }
+      unsigned ballot[kSlots];
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const float from_even = high ? second[q] : first[q];  // M[2m]
+        const float from_odd = high ? first[q] : second[q];   // M[2m+1]
+        const float bm_e0 = *bm_at[q][0][0];
+        const float bm_o0 = *bm_at[q][0][1];
+        const float bm_e1 = *bm_at[q][1][0];
+        const float bm_o1 = *bm_at[q][1][1];
+        // target b*S/2 + m = g + (q + b*kPairs)*kGroup
+        const float a0 = from_even + bm_e0, o0 = from_odd + bm_o0;
+        const float a1 = from_even + bm_e1, o1 = from_odd + bm_o1;
+        metric[q] = o0 > a0 ? o0 : a0;
+        metric[q + kPairs] = o1 > a1 ? o1 : a1;
+        ballot[q] = __ballot_sync(kFullMask, o0 > a0);
+        ballot[q + kPairs] = __ballot_sync(kFullMask, o1 > a1);
+      }
+      // The ballots are the step's decisions as they stand; the first thread
+      // of each warp stages them, and the words are cut from them once per
+      // chunk, below.
+      if (threadIdx.x % 32 == 0) {
+        if constexpr (kSlots == 4) {
+          *reinterpret_cast<uint4*>(ballot_at) = make_uint4(ballot[0], ballot[1], ballot[2],
+                                                            ballot[3]);
+        } else {
+          *reinterpret_cast<uint2*>(ballot_at) = make_uint2(ballot[0], ballot[1]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          bm_at[q][b][0] += step_floats;
+          bm_at[q][b][1] += step_floats;
+        }
+      }
+      ballot_at += warps * kSlots;
+    }
+    __syncthreads();  // the chunk's decisions are staged; its branch metrics are spent
+
+    // Word w of lane l: states w*W .. w*W + W-1. With a warp per lane, ballot
+    // u of warp l holds states 32u .. 32u+31; with several lanes a warp, lane
+    // l's bits of ballots 0 and 1 (states 0 .. S/2-1 and S/2 .. S-1) start at
+    // bit (l*kGroup) % 32 of its warp's ballots.
+    const int n = n_steps * kWords * LANES;
+    int* out = dec + static_cast<size_t>(t0) * kWords * lanes + lane0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {  // i = ((t * kWords) + w) * LANES + l
+      const int l = i % LANES;
+      const int row = i / LANES;
+      const int t = row / kWords, w = row % kWords;
+      if (lane0 + l < lanes) {
+        const unsigned* b = ballot_stage + (t * warps + l * kGroup / 32) * kSlots;
+        unsigned word;
+        if constexpr (kGroup == 32) {
+          word = (b[w / 2] >> (16 * (w % 2))) & 0xffffu;
+        } else {
+          constexpr unsigned kMask = (1u << kGroup) - 1u;
+          const int segment = l * kGroup % 32;
+          const unsigned bits =
+              ((b[0] >> segment) & kMask) | (((b[1] >> segment) & kMask) << kGroup);
+          word = kWords == 1 ? bits : (bits >> (16 * w)) & 0xffffu;
+        }
+        out[static_cast<size_t>(row) * lanes + l] = static_cast<int>(word);
+      }
+    }
   }
 
+  if (lane < lanes) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) final_metrics[s * n_lanes + lane] = metric[s];
+    for (int u = 0; u < kSlots; ++u) {
+      final_metrics[static_cast<size_t>(g + u * kGroup) * lanes + lane] = metric[u];
+    }
+  }
 }
 
 template <int S>
@@ -171,19 +312,52 @@ viterbi_traceback_kernel(const int* __restrict__ dec,
   }
 }
 
+template <int S, int C, int LANES>
+cudaError_t launch_forward_lanes(const float* bm, const CodeTable& table, int* dec,
+                                 float* final_metrics, int steps, int lanes, int chunk,
+                                 cudaStream_t stream) {
+  constexpr int kGroup = S / 2 < 32 ? S / 2 : 32;
+  constexpr int kBlockThreads = kGroup * LANES;
+  static_assert(kBlockThreads % 32 == 0 && kBlockThreads <= 1024, "whole warps");
+  // two chunks of branch metrics, and a chunk of each warp's S/kGroup ballots
+  const long long smem = 4LL * chunk * (2LL * C * LANES + kBlockThreads / 32 * (S / kGroup));
+  if (smem > kStaticSharedBytes) return cudaErrorInvalidConfiguration;
+  const int blocks = (lanes + LANES - 1) / LANES;
+  viterbi_forward_kernel<S, C, LANES><<<blocks, kBlockThreads, static_cast<size_t>(smem),
+                                        stream>>>(bm, table, dec, final_metrics, steps, lanes,
+                                                  chunk);
+  return cudaGetLastError();
+}
+
+// The two block shapes of a code: one warp, or 256 threads (at most 32 lanes).
+template <int S, int C>
+cudaError_t launch_forward_kernel(const float* bm, const CodeTable& table, int* dec,
+                                  float* final_metrics, int steps, int lanes,
+                                  int lanes_per_block, int chunk, cudaStream_t stream) {
+  constexpr int kGroup = S / 2 < 32 ? S / 2 : 32;
+  constexpr int kOneWarp = 32 / kGroup;
+  constexpr int kFull = 256 / kGroup < 32 ? 256 / kGroup : 32;
+  if (lanes_per_block == kFull) {
+    return launch_forward_lanes<S, C, kFull>(bm, table, dec, final_metrics, steps, lanes, chunk,
+                                             stream);
+  }
+  if (lanes_per_block == kOneWarp) {
+    return launch_forward_lanes<S, C, kOneWarp>(bm, table, dec, final_metrics, steps, lanes,
+                                                chunk, stream);
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
 template <int S>
 cudaError_t launch_forward(const float* bm, const CodeTable& table, int* dec,
                            float* final_metrics, int steps, int lanes, int n_codes,
-                           cudaStream_t stream) {
-  const int blocks = (lanes + kThreads - 1) / kThreads;
+                           int lanes_per_block, int chunk, cudaStream_t stream) {
   if (n_codes == 4) {
-    viterbi_forward_kernel<S, 4><<<blocks, kThreads, 0, stream>>>(
-        bm, table, dec, final_metrics, steps, lanes);
-  } else {
-    viterbi_forward_kernel<S, 8><<<blocks, kThreads, 0, stream>>>(
-        bm, table, dec, final_metrics, steps, lanes);
+    return launch_forward_kernel<S, 4>(bm, table, dec, final_metrics, steps, lanes,
+                                       lanes_per_block, chunk, stream);
   }
-  return cudaGetLastError();
+  return launch_forward_kernel<S, 8>(bm, table, dec, final_metrics, steps, lanes,
+                                     lanes_per_block, chunk, stream);
 }
 
 template <int S>
@@ -200,14 +374,16 @@ cudaError_t launch_traceback(const int* dec, const int* start_state, int* bits,
 // bm: (steps, n_codes, lanes) float32 and dec: (steps, G, lanes) int32,
 // final_metrics: (S, lanes) float32, all contiguous on the current device;
 // code_idx: (S, 2) int32 in HOST memory, copied into the kernel's
-// arguments. 3 <= constraint <= 8, n_codes 4 or 8. Launches on `stream`
-// without synchronising and returns the launch's cudaError_t (0 on
-// success).
+// arguments. 3 <= constraint <= 8, n_codes 4 or 8; min(S/2, 32) *
+// lanes_per_block threads a block, one warp or 256 threads (at most 32 lanes); chunk
+// >= 1 steps staged at a time, within 48 KB of shared memory. Launches on `stream` without synchronising
+// and returns the launch's cudaError_t (0 on success).
 extern "C" int r4w_viterbi_forward(const float* bm, const int* code_idx, int* dec,
                                    float* final_metrics, int steps, int lanes,
-                                   int constraint, int n_codes, cudaStream_t stream) {
+                                   int constraint, int n_codes, int lanes_per_block,
+                                   int chunk, cudaStream_t stream) {
   if (constraint < 3 || constraint > 8 || (n_codes != 4 && n_codes != 8) || steps < 0 ||
-      lanes < 0) {
+      lanes < 0 || lanes_per_block < 1 || chunk < 1) {
     return cudaErrorInvalidValue;
   }
   if (lanes == 0) return cudaSuccess;
@@ -217,22 +393,28 @@ extern "C" int r4w_viterbi_forward(const float* bm, const int* code_idx, int* de
     for (int b = 0; b < 2; ++b) {
       const int code = code_idx[2 * st + b];
       if (code < 0 || code >= n_codes) return cudaErrorInvalidValue;
-      table.offset[st][b] = code * kThreads * static_cast<int>(sizeof(float));
+      table.code[st][b] = code;
     }
   }
   switch (states) {
     case 4:
-      return launch_forward<4>(bm, table, dec, final_metrics, steps, lanes, n_codes, stream);
+      return launch_forward<4>(bm, table, dec, final_metrics, steps, lanes, n_codes,
+                               lanes_per_block, chunk, stream);
     case 8:
-      return launch_forward<8>(bm, table, dec, final_metrics, steps, lanes, n_codes, stream);
+      return launch_forward<8>(bm, table, dec, final_metrics, steps, lanes, n_codes,
+                               lanes_per_block, chunk, stream);
     case 16:
-      return launch_forward<16>(bm, table, dec, final_metrics, steps, lanes, n_codes, stream);
+      return launch_forward<16>(bm, table, dec, final_metrics, steps, lanes, n_codes,
+                                lanes_per_block, chunk, stream);
     case 32:
-      return launch_forward<32>(bm, table, dec, final_metrics, steps, lanes, n_codes, stream);
+      return launch_forward<32>(bm, table, dec, final_metrics, steps, lanes, n_codes,
+                                lanes_per_block, chunk, stream);
     case 64:
-      return launch_forward<64>(bm, table, dec, final_metrics, steps, lanes, n_codes, stream);
+      return launch_forward<64>(bm, table, dec, final_metrics, steps, lanes, n_codes,
+                                lanes_per_block, chunk, stream);
     default:
-      return launch_forward<128>(bm, table, dec, final_metrics, steps, lanes, n_codes, stream);
+      return launch_forward<128>(bm, table, dec, final_metrics, steps, lanes, n_codes,
+                                 lanes_per_block, chunk, stream);
   }
 }
 

@@ -2,17 +2,21 @@
 
 The kernels, ``csrc/viterbi.cu``, replace
 ``r4w_tpu/kernels/pallas_kernels.py:viterbi_forward`` (:403) and
-``viterbi_traceback`` (:479). Both are bound by device-memory bytes: the
-forward pass reads the (T, C, L) branch metrics and writes the (T, G, L)
-packed decisions, a few FP32 adds and compares per byte; the traceback
-reads one decision word and writes one bit per (step, lane). The TPU
-kernel's point was to keep the path metrics on chip for the whole frame,
-and so does this one: one thread per lane (lanes on ``threadIdx.x``, so
-every load and store is coalesced in the (T, C, L) layout) holds all S
-path metrics in registers and loops over all T steps, with the shift-
-register butterfly as plain indexing. The TPU's 0/1 selection matmuls,
-bf16 3-split and decision-pack matmul existed only because Mosaic has no
-gather, and are not carried over.
+``viterbi_traceback`` (:479). Both are bound by device-memory bytes once
+latency is hidden: the forward pass reads the (T, C, L) branch metrics and
+writes the (T, G, L) packed decisions, a few FP32 adds and compares per
+byte; the traceback reads one decision word and writes one bit per (step,
+lane). The TPU kernel's point was to keep the path metrics on chip for the
+whole frame, and so do these. The forward kernel spreads each lane's S
+states over a group of min(S/2, 32) threads, one butterfly each (a warp
+per lane at K = 7): a step is a round of warp shuffles for the
+predecessors' metrics, the add-compare-selects, and ballots whose bits are
+the decision words. A block holds a few lanes (`forward_plan`) and stages
+chunks of steps through shared memory, the branch metrics double-buffered
+with ``cp.async`` and the decisions written back as rows. The traceback
+runs one thread per lane. The TPU's 0/1 selection matmuls, bf16 3-split
+and decision-pack matmul existed only because Mosaic has no gather, and
+are not carried over.
 
 Layouts are the reference kernels': branch metrics ``bm`` (T, C, L)
 float32 with C = 2^R; decisions (T, G, L) int32, the decision of target
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +50,10 @@ from r4w_tpu_torch.kernels import _build
 MIN_CONSTRAINT, MAX_CONSTRAINT = 3, 8  # what the kernels are built for
 RATES = (2, 3)                          # outputs per input bit, R
 UNREACHED = -1e9                        # initial metric of every state but 0
+BLOCK_THREADS = 256        # the forward kernel's block, where there are lanes enough
+MAX_LANES_PER_BLOCK = 32   # a staged row of one (step, codeword) is at most 128 bytes
+MAX_CHUNK = 32             # steps staged at a time
+STATIC_SMEM_BYTES = 48 * 1024
 
 
 def _check_code(constraint: int, polys) -> None:
@@ -72,6 +81,33 @@ def code_index(constraint: int, polys: tuple[int, ...]) -> np.ndarray:
 def word_width(constraint: int) -> int:
     """Decisions packed per int32 word: 16, or S when S < 16."""
     return min(16, 1 << (constraint - 1))
+
+
+class ForwardPlan(NamedTuple):
+    """One launch of the forward kernel."""
+    group: int            # threads a lane: min(S/2, 32)
+    lanes_per_block: int
+    chunk: int            # steps staged in shared memory at a time
+    threads: int          # a block
+    smem_bytes: int       # two chunks of branch metrics and one of decision ballots
+
+
+def forward_plan(constraint: int, n_codes: int, lanes: int) -> ForwardPlan:
+    """The host's plan for the forward kernel: BLOCK_THREADS threads a block
+    (at most MAX_LANES_PER_BLOCK lanes) where the lanes fill it, else one
+    warp a block, and the longest chunk of steps whose staging fits 48 KB of
+    shared memory. The kernel is built for these two block shapes."""
+    s = 1 << (constraint - 1)
+    group = min(s // 2, 32)
+    full = min(BLOCK_THREADS // group, MAX_LANES_PER_BLOCK)  # the kernel's two block shapes
+    lanes_per_block = full if lanes >= full else 32 // group
+    threads = group * lanes_per_block
+    # per step: the lanes' branch metrics twice (double buffer), each warp's S/group ballots
+    step_bytes = 4 * (2 * n_codes * lanes_per_block + threads // 32 * (s // group))
+    chunk = MAX_CHUNK
+    while chunk > 1 and chunk * step_bytes > STATIC_SMEM_BYTES:
+        chunk //= 2
+    return ForwardPlan(group, lanes_per_block, chunk, threads, chunk * step_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,7 +163,7 @@ viterbi_traceback.launches = 0  # counted by viterbi_traceback_cuda
 def _kernels():
     lib = _build.load_library("viterbi")
     forward = lib.r4w_viterbi_forward
-    forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     forward.restype = ctypes.c_int
     traceback = lib.r4w_viterbi_traceback
     traceback.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -161,10 +197,12 @@ def viterbi_forward_cuda(bm: torch.Tensor, constraint: int, polys) -> tuple[torc
     if lanes == 0:
         return dec, final
     code = code_index(constraint, polys)  # host memory: the launch copies it into kernel arguments
+    plan = forward_plan(constraint, n_codes, lanes)
     with torch.cuda.device(bm.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels()[0](bm.data_ptr(), code.ctypes.data, dec.data_ptr(), final.data_ptr(),
-                            steps, lanes, constraint, n_codes, stream)
+                            steps, lanes, constraint, n_codes, plan.lanes_per_block, plan.chunk,
+                            stream)
     if err != 0:
         raise RuntimeError(f"r4w_viterbi_forward launch failed with cudaError {err}")
     viterbi_forward.launches += 1

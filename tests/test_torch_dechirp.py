@@ -1,8 +1,10 @@
 """The port's dechirp-power kernel module against ``pallas_kernels.dechirp_power_mxu``.
 
 On the CPU the module runs its plain PyTorch version, held here against
-the Pallas kernel in interpret mode. The CUDA kernel itself runs only on
-a card: its test is marked ``cuda`` and skips elsewhere.
+the Pallas kernel in interpret mode; the kernel's launch plan and a numpy
+model of its Stockham FFT (the plan's passes, index maps and twiddles)
+are checked here too. The CUDA kernel itself runs only on a card: its
+tests are marked ``cuda`` and skip elsewhere.
 """
 
 import os
@@ -23,6 +25,7 @@ from r4w_tpu_torch.waveforms.lora import chirp
 
 REPO = Path(__file__).resolve().parents[1]
 REL_TOL = 1e-4  # the bar of tests/test_kernels_sync_arq.py::test_dechirp_kernel_matches_fft
+MAX_THREADS, STATIC_SHARED_BYTES = 1024, 48 * 1024  # a Hopper block without opting in
 
 
 def _rows(sf: int, n_clean: int = 16, n_noise: int = 8):
@@ -62,6 +65,70 @@ def test_twiddle_table_matches_dft_mats(sf):
     idx = np.outer(n, n) % k
     np.testing.assert_allclose(twiddle[idx].real, wr[np.ix_(n, n)], rtol=0, atol=1e-6)
     np.testing.assert_allclose(twiddle[idx].imag, wi[np.ix_(n, n)], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("sf", range(5, 13))
+def test_launch_plan_fits_a_hopper_block(sf):
+    k = 1 << sf
+    plan = dechirp.launch_plan(k)
+    assert plan.rows_per_block >= 1
+    assert plan.threads % 32 == 0 and plan.threads <= MAX_THREADS
+    assert plan.threads * dechirp.POINTS == plan.rows_per_block * k  # 16 points a thread
+    assert plan.smem_bytes <= STATIC_SHARED_BYTES
+    assert np.prod(plan.radices) == k and max(plan.radices) <= dechirp.POINTS
+
+
+def _dif_in_registers(v: np.ndarray, tw: np.ndarray) -> np.ndarray:
+    """The kernel's radix-R DIF on axis 1 of v, complex64: v[:, s] ends as X[bit_reverse(s)]."""
+    r, k = v.shape[1], tw.shape[0]
+    v = v.copy()
+    span = r // 2
+    while span >= 1:
+        for start in range(0, r, 2 * span):
+            for t in range(span):
+                a, b = v[:, start + t].copy(), v[:, start + t + span].copy()
+                v[:, start + t] = a + b
+                v[:, start + t + span] = (a - b) * (tw[t * (k // (2 * span))] if t else 1)
+        span //= 2
+    return v
+
+
+def _stockham_model(x: np.ndarray, down: np.ndarray) -> np.ndarray:
+    """numpy model of csrc/dechirp_power.cu: the plan's Stockham passes in complex64."""
+    rows, k = x.shape
+    tw = dechirp._twiddle_np(k)
+    data = (x * down).astype(np.complex64)
+    ns = 1
+    for r in dechirp.launch_plan(k).radices:
+        j = np.arange(k // r)
+        v = data[:, j[None, :] + (k // r) * np.arange(r)[:, None]]  # (rows, r, butterflies)
+        if ns > 1:
+            w = tw[(j % ns) * (k // (ns * r))]
+            power = w.copy()
+            for i in range(1, r):
+                v[:, i] *= power
+                power = (power * w).astype(np.complex64)
+        v = _dif_in_registers(v, tw)
+        bits = r.bit_length() - 1
+        out = np.empty_like(data)
+        first = (j // ns) * ns * r + j % ns
+        for s_ in range(r):
+            q = int(format(s_, f"0{bits}b")[::-1], 2) if bits else 0
+            out[:, first + q * ns] = v[:, s_]
+        data, ns = out, ns * r
+    return (data.real ** 2 + data.imag ** 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("sf", range(5, 13))
+def test_stockham_model_matches_plain_version(sf):
+    """The kernel's algorithm, run in numpy, within the kernel's bar of the plain version."""
+    p, syms, x, down = _rows(sf, n_clean=8, n_noise=4)
+    got = _stockham_model(x, down)
+    want = dechirp.dechirp_power(torch.from_numpy(x), torch.from_numpy(down)).numpy()
+    n = len(syms)
+    for part in (slice(0, n), slice(n, None)):
+        assert np.max(np.abs(got[part] - want[part])) / want[part].max() < REL_TOL
+    np.testing.assert_array_equal(got[:n].argmax(-1), syms)
 
 
 def test_cpu_tensor_runs_plain_version_and_launches_nothing():
@@ -132,3 +199,43 @@ def test_kernel_matches_plain_on_card(sf):
     for part in (slice(0, n), slice(n, None)):
         assert float((got[part] - want[part]).abs().max() / want[part].max()) < REL_TOL
     assert got[:n].argmax(-1).cpu().numpy().tolist() == syms.tolist()
+
+
+def _ragged_counts(sf: int):
+    """Row counts that leave the kernel's last block ragged at this SF."""
+    per_block = dechirp.launch_plan(1 << sf).rows_per_block
+    return sorted({1, 3, 5, 5 * per_block + 3} | ({100_003} if sf == 7 else set()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sf", range(5, 13))
+def test_kernel_on_ragged_blocks_on_card(sf):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    p = lora.LoRaParams(sf=sf)
+    k = p.chips_per_symbol
+    down = chirp.base_downchirp(p, device="cuda")
+    rng = np.random.default_rng(100 + sf)
+    for rows in _ragged_counts(sf):
+        syms = torch.from_numpy(rng.integers(0, k, rows).astype(np.int32)).cuda()
+        clean = chirp.symbol_chirps(p, syms)
+        noise = rng.standard_normal((rows, k)) + 1j * rng.standard_normal((rows, k))
+        noise = torch.from_numpy(noise.astype(np.complex64)).cuda()
+        for x in (clean, noise):
+            got, want = dechirp.dechirp_power_cuda(x, down), dechirp.dechirp_power(x, down)
+            assert float((got - want).abs().max() / want.max()) < REL_TOL
+        assert torch.equal(dechirp.dechirp_power_cuda(clean, down).argmax(-1).int(), syms)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_a_view_off_16_byte_alignment_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    p, _, x, down = _rows(7)
+    flat = torch.from_numpy(x).cuda().reshape(-1)
+    rows, k = x.shape[0] - 1, x.shape[1]
+    view = flat[1: 1 + rows * k].view(rows, k)  # starts 8 bytes past an allocation
+    assert view.data_ptr() % 16 == 8
+    dt = torch.from_numpy(down).cuda()
+    got, want = dechirp.dechirp_power_dispatch(view, dt), dechirp.dechirp_power(view, dt)
+    assert float((got - want).abs().max() / want.max()) < REL_TOL

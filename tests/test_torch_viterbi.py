@@ -1,10 +1,12 @@
 """The port's Viterbi kernel module: dispatch, build and the CUDA kernels.
 
 On the CPU the dispatchers run the plain versions and launch nothing; the
-module imports without ``nvcc``. The CUDA kernels run only on a card:
-their tests are marked ``cuda``, decide inside the test whether a card
-exists, and skip elsewhere. Kernel and plain version must agree exactly:
-the kernels do FP32 adds and compares only.
+module imports without ``nvcc``; the forward kernel's launch plan and a
+numpy model of its warp-per-lane step (shuffle exchange, ballots, words
+cut from the ballots) are checked against the plain version. The CUDA
+kernels run only on a card: their tests are marked ``cuda``, decide inside
+the test whether a card exists, and skip elsewhere. Kernel and plain
+version must agree exactly: the kernels do FP32 adds and compares only.
 """
 
 import os
@@ -21,16 +23,23 @@ from r4w_tpu_torch.kernels import viterbi
 
 REPO = Path(__file__).resolve().parents[1]
 CODES = {5: (0o23, 0o35), 7: (0o171, 0o133)}
+# every constraint at R = 2, K = 7 at R = 3, and codes whose generators do
+# not all tap both ends of the register
+ALL_CODES = [(3, (0o7, 0o5)), (4, (0o17, 0o13)), (5, (0o23, 0o35)), (6, (0o53, 0o75)),
+             (7, (0o171, 0o133)), (8, (0o247, 0o371)), (7, (0o133, 0o171, 0o165)),
+             (4, (0o16, 0o13)), (7, (0o170, 0o133))]
+MAX_THREADS, STATIC_SHARED_BYTES = 1024, 48 * 1024
 
 
 def _branch_metrics(lanes: int, n_info: int, constraint: int, seed: int = 3,
-                    sigma: float = 0.4) -> torch.Tensor:
-    """(T, 4, lanes) branch metrics of noisy soft input for the code of `constraint`."""
+                    sigma: float = 0.4, polys=None) -> torch.Tensor:
+    """(T, 2^R, lanes) branch metrics of noisy soft input for the code of `constraint`."""
+    polys = CODES[constraint] if polys is None else polys
     rng = np.random.default_rng(seed)
     bits = torch.from_numpy(rng.integers(0, 2, (lanes, n_info)).astype(np.int32))
-    coded = convolutional.conv_encode(bits, constraint, CODES[constraint]).numpy()
+    coded = convolutional.conv_encode(bits, constraint, polys).numpy()
     soft = (1.0 - 2.0 * coded + sigma * rng.standard_normal(coded.shape)).astype(np.float32)
-    return convolutional._branch_metrics(torch.from_numpy(soft).reshape(lanes, -1, 2))
+    return convolutional._branch_metrics(torch.from_numpy(soft).reshape(lanes, -1, len(polys)))
 
 
 def test_cpu_dispatch_runs_plain_versions_and_launches_nothing():
@@ -82,6 +91,84 @@ def test_decision_words_and_traceback_invert_each_other(constraint):
     assert torch.equal(out.T[:, :30], bits) and not out.T[:, 30:].any()
 
 
+@pytest.mark.parametrize("lanes", [1, 3, 130, 2100, 4096])
+@pytest.mark.parametrize("constraint,polys", ALL_CODES[:7])
+def test_forward_plan_fits_a_hopper_block(constraint, polys, lanes):
+    plan = viterbi.forward_plan(constraint, 1 << len(polys), lanes)
+    assert plan.group == min(1 << (constraint - 2), 32)
+    assert plan.lanes_per_block >= 1 and plan.chunk >= 1
+    assert plan.threads == plan.group * plan.lanes_per_block
+    assert plan.threads % 32 == 0 and plan.threads <= MAX_THREADS  # whole warps for the shuffles
+    assert plan.smem_bytes <= STATIC_SHARED_BYTES
+    if lanes >= 2100:
+        assert plan.threads == viterbi.BLOCK_THREADS or plan.lanes_per_block == 32
+
+
+def _forward_model(bm: np.ndarray, constraint: int, polys) -> tuple[np.ndarray, np.ndarray]:
+    """numpy model of csrc/viterbi.cu's forward kernel, step by step: thread g of
+    a lane holds states g + u*G; two shuffles a slot pair fetch the sources;
+    ballots are laid out by thread index in the plan's blocks and the words
+    are cut from them as the kernel's write-out does."""
+    steps, n_codes, lanes = bm.shape
+    s = 1 << (constraint - 1)
+    plan = viterbi.forward_plan(constraint, n_codes, lanes)
+    group, block = plan.group, plan.lanes_per_block
+    slots, pairs = s // group, s // group // 2
+    width, n_words = viterbi.word_width(constraint), s // viterbi.word_width(constraint)
+    code = viterbi.code_index(constraint, tuple(polys))
+    g = np.arange(group)
+    high, odd = (2 * g >= group)[:, None], (g % 2 == 1)[:, None]
+    src_first = np.where(2 * g >= group, 2 * g + 1, 2 * g) % group
+    src_second = np.where(2 * g >= group, 2 * g, 2 * g + 1) % group
+    metric = np.full((slots, group, lanes), np.float32(-1e9), np.float32)
+    metric[0, 0] = 0.0
+    lane = np.arange(lanes)
+    thread = (lane % block)[None, :] * group + g[:, None]  # (G, L): thread index in the block
+    dec = np.zeros((steps, n_words, lanes), np.int64)
+    for t in range(steps):
+        new, ballot_bits = np.empty_like(metric), np.zeros((slots, group, lanes), np.int64)
+        for q in range(pairs):
+            low, upper = metric[2 * q], metric[2 * q + 1]
+            first = np.where(odd, upper, low)[src_first]
+            second = np.where(odd, low, upper)[src_second]
+            from_even, from_odd = np.where(high, second, first), np.where(high, first, second)
+            m = g + q * group
+            for b in range(2):
+                a = from_even + bm[t][code[2 * m, b]]
+                o = from_odd + bm[t][code[2 * m + 1, b]]
+                new[q + b * pairs] = np.where(o > a, o, a)
+                ballot_bits[q + b * pairs] = (o > a).astype(np.int64) << (thread % 32)
+        metric = new
+        # each warp's ballot u, then the write-out's cut of lane l's words
+        warp = (lane % block) * group // 32
+        ballots = np.zeros((slots, lanes), np.int64)
+        for u in range(slots):
+            per_warp = {}
+            for l in range(lanes):
+                key = (l // block, warp[l])
+                per_warp[key] = per_warp.get(key, 0) | int(ballot_bits[u, :, l].sum())
+            ballots[u] = [per_warp[(l // block, warp[l])] for l in range(lanes)]
+        for w in range(n_words):
+            if group == 32:
+                dec[t, w] = (ballots[w // 2] >> (16 * (w % 2))) & 0xFFFF
+            else:
+                seg = (lane % block) * group % 32
+                mask = (1 << group) - 1
+                bits = ((ballots[0] >> seg) & mask) | (((ballots[1] >> seg) & mask) << group)
+                dec[t, w] = bits if n_words == 1 else (bits >> (16 * w)) & 0xFFFF
+    final = np.stack([metric[u, gg] for u in range(slots) for gg in range(group)])
+    return dec.astype(np.int32), final
+
+
+@pytest.mark.parametrize("constraint,polys", ALL_CODES)
+def test_forward_model_equals_plain_version(constraint, polys):
+    bm = _branch_metrics(37, 40, constraint, seed=constraint, polys=polys)
+    dec, final = _forward_model(bm.numpy(), constraint, polys)
+    want_dec, want_final = viterbi.viterbi_forward(bm, constraint, polys)
+    np.testing.assert_array_equal(dec, want_dec.numpy())
+    np.testing.assert_array_equal(final, want_final.numpy())
+
+
 def test_module_imports_without_nvcc():
     code = ("import sys\n"
             "import r4w_tpu_torch.kernels.viterbi as v\n"
@@ -125,3 +212,20 @@ def test_kernels_equal_plain_versions_on_card(lanes, n_info, constraint):
     assert (viterbi.viterbi_forward.launches, viterbi.viterbi_traceback.launches) == (
         before[0] + 1, before[1] + 2)
     assert torch.equal(dec, want_dec) and torch.equal(final, want_final)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("constraint,polys", ALL_CODES)
+def test_forward_kernel_on_ragged_shapes_on_card(constraint, polys):
+    """Lanes 1/3/130/2100 (one-warp and full blocks, ragged last block) and
+    T not a multiple of the staging chunk, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    for lanes in (1, 3, 130, 2100):
+        for steps in (37, 300):
+            bm = _branch_metrics(lanes, steps - constraint + 1, constraint, seed=steps + lanes,
+                                 polys=polys).cuda()
+            dec, final = viterbi.viterbi_forward_cuda(bm, constraint, polys)
+            want_dec, want_final = viterbi.viterbi_forward(bm, constraint, polys)
+            torch.cuda.synchronize()
+            assert torch.equal(dec, want_dec) and torch.equal(final, want_final), (lanes, steps)
