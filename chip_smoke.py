@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port's paths on one CUDA card.
 
 Builds every Hopper kernel from this checkout (one nvcc per source, run in
-parallel) and holds each against its plain PyTorch version. Then it drives
+parallel), counts local-memory instructions in their SASS, and holds each
+against its plain PyTorch version. Then it drives
 three paths through the port's public entry points and shows that each
 launched its kernels: the LoRa loopback (the quick start, ``entry()``'s
 forward step and the full SF7-SF12 Monte-Carlo sweep; dechirp-power
@@ -24,8 +25,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +61,10 @@ VITERBI_CODES = {5: (0o23, 0o35), 7: (0o171, 0o133)}
 VITERBI_ALL_CODES = ((3, (0o7, 0o5)), (4, (0o17, 0o13)), (5, (0o23, 0o35)), (6, (0o53, 0o75)),
                      (7, (0o171, 0o133)), (8, (0o247, 0o371)), (7, (0o133, 0o171, 0o165)),
                      (4, (0o16, 0o13)), (7, (0o170, 0o133)))
-VITERBI_ALL_LANES = (1, 3, 130, 2100, 4096)
+VITERBI_ALL_LANES = (1, 3, 33, 130, 2100, 4096)
 VITERBI_RAGGED_STEPS = (37, 300)  # not multiples of any staging chunk (32 or 16 steps)
+# the traceback kernel's template instances in the SASS, one per state count
+TRACEBACK_INSTANCES = viterbi.MAX_CONSTRAINT - viterbi.MIN_CONSTRAINT + 1
 MIL_STEPS = 1440  # one lane's trellis at 2400 bps, short interleave: MIL-STD-188-110's plan
 DECHIRP_RAGGED_ROWS_SF7 = 100_003
 MIL_DATA = bytes([0xA7, 0x1B, 0x3C, 0xD2, 0x55, 0x00, 0xFF, 0x42])  # tests/test_hf_modems.py:23
@@ -72,6 +77,9 @@ FIR_TAPS = (1, 4, 31, 63, 512, 1025)
 FIR_FACTORS = (1, 2, 4, 8)
 NCO_CASES = ((30.72e6 / 4, 30.72e6), (-30.72e6 / 4, 30.72e6), (30.72e6 / 8, 30.72e6),
              (-30.72e6 / 8, 30.72e6), (2500.0, 1e6))  # freq Hz, sample rate Hz
+# (rows, n): long rows; then row counts that are not a multiple of the kernel's
+# row tile (nco.ROW_TILE), with even n (column pairs) and odd n (one column a thread)
+NCO_SHAPES = ((2, 1 << 20), (3, 4097), (1, 1 << 16), (17, 1 << 16), (17, 4097))
 ROUND_TRIP_SAMPLES = 1 << 17  # baseband samples per stream, ×8 up and back down
 ROUND_TRIP_TONE_HZ = 120e3
 XLATING_BLOCKS = 4
@@ -106,6 +114,22 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     the bytes over the HBM rate and the operations over the FP32 peak."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def local_memory_ops(library: Path) -> dict[str, int]:
+    """LDL/STL (local-memory) instructions per kernel of a built library, from
+    ``cuobjdump -sass``, by the kernel's mangled name."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and re.search(r"\b(LDL|STL)\b", line):
+            counts[name] += 1
+    return counts
 
 
 def zero_launch_counts() -> None:
@@ -222,27 +246,33 @@ def check_fir_kernel(dev: torch.device) -> dict:
 def check_nco_kernel(dev: torch.device) -> dict:
     """Phase 13: the NCO kernel against its plain version at ±fs/4, ±fs/8 and
     2500 Hz at 1 MHz, gain 1 and 2, φ₀ 0 and 1, up to 2^20 samples a row
-    (the phase-rounding trap shows only at large indices); then timed at
-    (64, 2^20). Returns the kernel-table entry."""
+    (the phase-rounding trap shows only at large indices), at row counts
+    that are not a multiple of the row tile (1, 3, 17) and odd n, each also
+    as a view 8 bytes off 16-byte alignment; then timed at (64, 2^20).
+    Returns the kernel-table entry."""
     gen = torch.Generator(device=dev).manual_seed(13)
-    cases, worst = 0, 0.0
-    for shape in ((2, 1 << 20), (3, 4097)):
-        x = randn_iq(shape, gen)
-        scale = float(x.abs().max())
-        for freq, rate in NCO_CASES:
-            for gain in (1.0, 2.0):
-                for phase0 in (0.0, 1.0):
-                    got = nco.nco_mix_cuda(x, freq, rate, phase0, gain)
-                    want = nco.nco_mix(x, freq, rate, phase0, gain)
-                    rel = float((got - want).abs().max()) / (gain * scale)
-                    cases += 1
-                    worst = max(worst, rel)
-                    if not rel <= NCO_REL_TOL:
-                        raise AssertionError(f"nco_mix {shape} f={freq} fs={rate} gain={gain} "
-                                             f"φ0={phase0}: max|Δ|/(gain·max|x|) {rel:.3g}")
+    cases, worst, bitwise = 0, 0.0, 0
+    for rows, n in NCO_SHAPES:
+        flat = randn_iq((rows * n + 1,), gen)
+        for view, x in (("aligned", flat[:-1].view(rows, n)), ("8 B off", flat[1:].view(rows, n))):
+            scale = float(x.abs().max())
+            for freq, rate in NCO_CASES:
+                for gain in (1.0, 2.0):
+                    for phase0 in (0.0, 1.0):
+                        got = nco.nco_mix_cuda(x, freq, rate, phase0, gain)
+                        want = nco.nco_mix(x, freq, rate, phase0, gain)
+                        rel = float((got - want).abs().max()) / (gain * scale)
+                        cases += 1
+                        bitwise += bool(torch.equal(got, want))
+                        worst = max(worst, rel)
+                        if not rel <= NCO_REL_TOL:
+                            raise AssertionError(
+                                f"nco_mix ({rows}, {n}) {view} f={freq} fs={rate} gain={gain} "
+                                f"φ0={phase0}: max|Δ|/(gain·max|x|) {rel:.3g}")
     phase("13 nco kernel", f"{cases} cases (±fs/4, ±fs/8, 2500 Hz at 1 MHz; gain 1/2; φ0 0/1; "
-          f"rows of 2^20 and 4097) match the plain version: worst max|Δ|/(gain·max|x|) "
-          f"{worst:.3g} <= {NCO_REL_TOL}")
+          f"(rows, n) {' '.join(f'({r}, {n})' for r, n in NCO_SHAPES)}, aligned and 8 B off) "
+          f"match the plain version: worst max|Δ|/(gain·max|x|) {worst:.3g} <= {NCO_REL_TOL}; "
+          f"{bitwise} of them bit for bit")
 
     x = randn_iq((DDC_STREAMS, DDC_SAMPLES), gen)
     freq = -DDC_CENTER_HZ
@@ -393,8 +423,9 @@ def check_viterbi_kernels() -> dict:
     for K = 5 and 7 at small shapes (one lane, as MIL-STD-188-110 decodes,
     a ragged block, several blocks), for every K = 3-8 at R = 2 and K = 7 at
     R = 3 with ragged lanes and steps, and at the decode bench's shape, where
-    they are also timed beside the plain versions; the forward kernel also at
-    MIL-STD-188-110's one-lane plan. Returns the kernel-table entries of both
+    they are also timed beside the plain versions; both also at
+    MIL-STD-188-110's one-lane plan. Every traceback runs from state 0 and
+    from the best final state. Returns the kernel-table entries of both
     kernels (times, bounds and errors at the bench shape)."""
     cases = 0
     for constraint in VITERBI_CODES:
@@ -458,8 +489,38 @@ def check_viterbi_kernels() -> dict:
     phase("8 timing", f"viterbi_forward at {tuple(one.shape)} (one lane): kernel {kern1[0]:.4f}/"
           f"{kern1[1]:.4f} ms (mean of {TIMED_LAUNCHES}), plain {plain1[0]:.4f}/{plain1[1]:.4f} "
           f"ms; bound {bound1:.4f} ms by {by1}, {100 * bound1 / (sum(kern1) / 2):.2f}% of it")
-    tb_bound = bound(4 * 2 * steps * lanes,  # one decision word read, one bit written
-                     5 * steps * lanes)
+
+    def traceback_bounds(steps, lanes):
+        """(one word read and one bit written per (step, lane), the floor of a
+        kernel that stages all G words of a step), each (ms, by)."""
+        return (bound(4 * 2 * steps * lanes, 5 * steps * lanes),
+                bound(4 * (groups + 1) * steps * lanes, 5 * steps * lanes))
+
+    one_dec, _ = viterbi.viterbi_forward_cuda(one, constraint, polys)
+    tb1 = [cuda_ms(lambda: viterbi.viterbi_traceback(one_dec, constraint, polys),
+                   PLAIN_VITERBI_CALLS)]
+    tk1 = [cuda_ms(lambda: viterbi.viterbi_traceback_cuda(one_dec, constraint, polys))
+           for _ in range(2)]
+    tb1.append(cuda_ms(lambda: viterbi.viterbi_traceback(one_dec, constraint, polys),
+                       PLAIN_VITERBI_CALLS))
+    (tb_bound1, tb_by1), (tb_all1, _) = traceback_bounds(MIL_STEPS, 1)
+    phase("8 timing", f"viterbi_traceback at {tuple(one_dec.shape)} (one lane): kernel "
+          f"{tk1[0]:.4f}/{tk1[1]:.4f} ms (mean of {TIMED_LAUNCHES}), plain {tb1[0]:.4f}/"
+          f"{tb1[1]:.4f} ms; bound {tb_bound1:.3g} ms by {tb_by1} (all-words floor "
+          f"{tb_all1:.3g} ms), {100 * tb_bound1 / (sum(tk1) / 2):.3g}% of it")
+    # the bench's decisions 4 bytes off 16-byte alignment: staged by 4-byte copies
+    off = torch.empty(dec.numel() + 1, dtype=dec.dtype, device=dec.device)[1:].view(dec.shape)
+    off.copy_(dec)
+    unaligned_equal = torch.equal(viterbi.viterbi_traceback_cuda(off, constraint, polys),
+                                  viterbi.viterbi_traceback(dec, constraint, polys))
+    if not unaligned_equal:
+        raise AssertionError("traceback kernel on unaligned decisions differs from plain")
+    tk_off = [cuda_ms(lambda: viterbi.viterbi_traceback_cuda(off, constraint, polys))
+              for _ in range(2)]
+    phase("8 timing", f"viterbi_traceback at {tuple(off.shape)}, decisions 4 bytes off 16-byte "
+          f"alignment (4-byte copies): kernel {tk_off[0]:.4f}/{tk_off[1]:.4f} ms (mean of "
+          f"{TIMED_LAUNCHES}); bits equal the plain version's")
+    tb_bound, (tb_all, _) = traceback_bounds(steps, lanes)
     table = {}
     for name, (b_ms, b_by), err, shape in (
             ("viterbi_forward", fwd_bound, errs["forward_abs_err"], [steps, n_codes, lanes]),
@@ -467,14 +528,23 @@ def check_viterbi_kernels() -> dict:
         kern, plain = times[name]
         table[name] = {"max_abs_err": err, "ms": sum(kern) / 2, "plain_ms": sum(plain) / 2,
                        "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+        floor = (f" (all-words floor {tb_all:.4f} ms, {100 * tb_all / table[name]['ms']:.2f}% "
+                 f"of it)" if name == "viterbi_traceback" else "")
         phase("8 timing", f"{name} at {tuple(shape)}: kernel {kern[0]:.4f}/{kern[1]:.4f} ms "
               f"(mean of {TIMED_LAUNCHES}), plain {plain[0]:.4f}/{plain[1]:.4f} ms (mean of "
               f"{PLAIN_VITERBI_CALLS}); bound {b_ms:.4f} ms by {b_by}, "
-              f"{100 * b_ms / table[name]['ms']:.2f}% of it; max|Δ| {err}")
+              f"{100 * b_ms / table[name]['ms']:.2f}% of it{floor}; max|Δ| {err}")
     table["viterbi_forward"].update({"ms_one_lane": sum(kern1) / 2,
                                      "plain_ms_one_lane": sum(plain1) / 2,
                                      "bound_ms_one_lane": bound1,
                                      "shape_one_lane": list(one.shape)})
+    table["viterbi_traceback"].update({"bound_ms_all_words": tb_all,
+                                       "ms_one_lane": sum(tk1) / 2,
+                                       "plain_ms_one_lane": sum(tb1) / 2,
+                                       "bound_ms_one_lane": tb_bound1,
+                                       "bound_ms_all_words_one_lane": tb_all1,
+                                       "shape_one_lane": list(one_dec.shape),
+                                       "ms_unaligned": sum(tk_off) / 2})
     return table
 
 
@@ -500,6 +570,20 @@ def main() -> None:
                         if "Used" in line and "registers" in line})
         phase("2 build", f"{path.name}; ptxas: {'; '.join(usage) or 'already built'}")
     phase("2 build", f"{len(built)} libraries in {time.perf_counter() - t0:.2f} s")
+    # A register array indexed by a value the compiler cannot fold goes to
+    # local memory; the traceback's step must not touch it.
+    for name, (path, _) in built.items():
+        ops = local_memory_ops(path)
+        used = {k: v for k, v in ops.items() if v}
+        phase("2 sass", f"{path.name}: {len(ops)} kernels; LDL/STL instructions: "
+              f"{json.dumps(used) if used else 'none'}")
+        if name == "viterbi":
+            traceback = {k: v for k, v in ops.items() if "viterbi_traceback_kernel" in k}
+            if len(traceback) != TRACEBACK_INSTANCES or any(traceback.values()):
+                raise AssertionError(f"want {TRACEBACK_INSTANCES} traceback kernels with no "
+                                     f"LDL/STL in the SASS, got {traceback}")
+            phase("2 sass", f"viterbi_traceback_kernel: {len(traceback)} instances, "
+                  "no LDL/STL in any")
 
     # 3. Kernel against the plain version: SF5-SF12, then the sweep's shapes.
     worst_rel = 0.0

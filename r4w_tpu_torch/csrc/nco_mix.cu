@@ -8,9 +8,18 @@
 // with the carrier computed in the kernel and never stored.
 //
 // What bounds it: device-memory bytes, 8 bytes read and 8 written per
-// sample against a sincos and six flops. Each thread moves two samples with
-// one 16-byte load and one 16-byte store (one sample a thread when a
-// pointer is not 16-byte aligned).
+// sample. The carrier depends on the column j only, so a thread computes it
+// once and applies it to a tile of kRowTile rows: one sincos per column and
+// tile, not one per sample. The thread owns a column pair (j, j+1) and
+// moves each row's pair with one 16-byte load and one 16-byte store; it
+// issues the tile's loads before its first store, so they overlap, and the
+// first tile's loads before the sincos, so the sincos overlaps them. When n
+// is odd or a pointer is not 16-byte aligned, a thread owns one column and
+// moves 8 bytes a row. The grid is (column blocks, row tiles), the row
+// tiles walked with a stride of gridDim.y when there are more than the
+// grid holds; the ragged last tile and the ragged last column block are
+// masked. The host plans the launch (kernels/nco.py: nco_plan) and this
+// entry point checks the plan.
 //
 // The phase repeats the reference's float32 roundings exactly: float(j)
 // rounded to nearest from the 64-bit index, the product rounded, then the
@@ -19,7 +28,9 @@
 // 0.06 rad at the phases a stream of 2^20 samples reaches. For the same
 // reason sincosf is the accurate one (no --use_fast_math, no __sinf): the
 // error of the fast versions grows with |ph|, which reaches 10^6 rad here.
-// Past |ph| = 105615 that accurate argument reduction takes its slow path.
+// Past |ph| = 105615 that accurate argument reduction takes its slow path;
+// shared by 8 rows it costs a few percent of the bytes' time. A one-row
+// call has nothing to share and still pays one sincosf a sample.
 
 #include <cuda_runtime.h>
 
@@ -28,67 +39,113 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRowTile = 8;           // rows that share one carrier
+constexpr long long kMaxGridY = 65535;
 
-__device__ __forceinline__ float2 mix(float2 v, long long j, float omega, float phase0,
-                                      float gain) {
+__device__ __forceinline__ float2 carrier(long long j, float omega, float phase0) {
   const float ph = __fadd_rn(__fmul_rn(omega, __ll2float_rn(j)), phase0);
-  float s;
-  float c;
-  sincosf(ph, &s, &c);
-  return make_float2(gain * (v.x * c - v.y * s), gain * (v.x * s + v.y * c));
+  float2 cs;
+  sincosf(ph, &cs.y, &cs.x);
+  return cs;  // (cos, sin)
 }
 
-// Samples 2i and 2i + 1 of the flattened (rows, n) block.
+__device__ __forceinline__ float2 rotate(float2 v, float2 cs, float gain) {
+  return make_float2(gain * (v.x * cs.x - v.y * cs.y), gain * (v.x * cs.y + v.y * cs.x));
+}
+
+// Columns 2p and 2p + 1 of every row, n even: row r's pair is x[r * n/2 + p].
 __global__ void __launch_bounds__(kThreads)
-    nco_mix_pairs(const float4* __restrict__ x, float4* __restrict__ out,
-                  long long total, long long n, float omega, float phase0, float gain) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long s = 2 * i;
-  if (s >= total) return;
-  const long long j = s % n;
-  if (s + 1 < total) {
-    const float4 v = x[i];
-    const long long j1 = j + 1 == n ? 0 : j + 1;
-    const float2 a = mix(make_float2(v.x, v.y), j, omega, phase0, gain);
-    const float2 b = mix(make_float2(v.z, v.w), j1, omega, phase0, gain);
-    out[i] = make_float4(a.x, a.y, b.x, b.y);
-  } else {
-    const float2 v = reinterpret_cast<const float2*>(x)[s];
-    reinterpret_cast<float2*>(out)[s] = mix(v, j, omega, phase0, gain);
+    nco_mix_pairs(const float4* __restrict__ x, float4* __restrict__ out, long long rows,
+                  long long n, float omega, float phase0, float gain) {
+  const long long half = n / 2;
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= half) return;
+  float2 c0, c1;
+  bool first = true;
+  for (long long r0 = static_cast<long long>(blockIdx.y) * kRowTile; r0 < rows;
+       r0 += static_cast<long long>(gridDim.y) * kRowTile) {
+    const float4* src = x + r0 * half + p;
+    float4* dst = out + r0 * half + p;
+    float4 v[kRowTile];
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      if (r0 + r < rows) v[r] = src[r * half];
+    }
+    if (first) {  // after the first tile's loads, so the sincos overlaps them
+      c0 = carrier(2 * p, omega, phase0);
+      c1 = carrier(2 * p + 1, omega, phase0);
+      first = false;
+    }
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      if (r0 + r < rows) {
+        const float2 a = rotate(make_float2(v[r].x, v[r].y), c0, gain);
+        const float2 b = rotate(make_float2(v[r].z, v[r].w), c1, gain);
+        dst[r * half] = make_float4(a.x, a.y, b.x, b.y);
+      }
+    }
   }
 }
 
-// Sample i of the flattened (rows, n) block.
+// Column j of every row: row r's sample is x[r * n + j].
 __global__ void __launch_bounds__(kThreads)
-    nco_mix_single(const float2* __restrict__ x, float2* __restrict__ out,
-                   long long total, long long n, float omega, float phase0, float gain) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  out[i] = mix(x[i], i % n, omega, phase0, gain);
+    nco_mix_single(const float2* __restrict__ x, float2* __restrict__ out, long long rows,
+                   long long n, float omega, float phase0, float gain) {
+  const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= n) return;
+  float2 cs;
+  bool first = true;
+  for (long long r0 = static_cast<long long>(blockIdx.y) * kRowTile; r0 < rows;
+       r0 += static_cast<long long>(gridDim.y) * kRowTile) {
+    const float2* src = x + r0 * n + j;
+    float2* dst = out + r0 * n + j;
+    float2 v[kRowTile];
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      if (r0 + r < rows) v[r] = src[r * n];
+    }
+    if (first) {
+      cs = carrier(j, omega, phase0);
+      first = false;
+    }
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      if (r0 + r < rows) dst[r * n] = rotate(v[r], cs, gain);
+    }
+  }
 }
 
 }  // namespace
 
 // x, out: (rows, n) complex64, contiguous on the current device; omega,
-// phase0 and gain already rounded to float32 by the caller. Launches on
-// `stream` without synchronising and returns the launch's cudaError_t (0 on
-// success).
+// phase0 and gain already rounded to float32 by the caller. The launch
+// plan comes from kernels/nco.py:nco_plan: pairs (column pairs, 16-byte
+// accesses) only when n is even and both pointers are 16-byte aligned;
+// blocks_x of 256 threads must cover the n/2 pairs (or n columns);
+// blocks_y must cover the tiles of 8 rows, up to 65535. Launches on
+// `stream` without synchronising and returns the launch's cudaError_t (0
+// on success).
 extern "C" int r4w_nco_mix(const float2* x, float2* out, long long rows, long long n,
-                           float omega, float phase0, float gain, cudaStream_t stream) {
+                           float omega, float phase0, float gain, long long blocks_x,
+                           long long blocks_y, int pairs, cudaStream_t stream) {
   if (rows < 0 || n < 0) return cudaErrorInvalidValue;
-  const long long total = rows * n;
-  if (total == 0) return cudaSuccess;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const long long items = aligned ? (total + 1) / 2 : total;
-  const long long blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (aligned) {
-    nco_mix_pairs<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), total, n, omega,
-        phase0, gain);
+  if (rows == 0 || n == 0) return cudaSuccess;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long items = pairs ? n / 2 : n;
+  const long long tiles = (rows + kRowTile - 1) / kRowTile;
+  if ((pairs && (n % 2 != 0 || !aligned)) || blocks_x < 1 || blocks_x > 0x7fffffffLL ||
+      blocks_x * kThreads < items || blocks_y < (tiles < kMaxGridY ? tiles : kMaxGridY) ||
+      blocks_y > kMaxGridY) {
+    return cudaErrorInvalidConfiguration;
+  }
+  const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(blocks_y));
+  if (pairs) {
+    nco_mix_pairs<<<grid, kThreads, 0, stream>>>(reinterpret_cast<const float4*>(x),
+                                                 reinterpret_cast<float4*>(out), rows, n,
+                                                 omega, phase0, gain);
   } else {
-    nco_mix_single<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        x, out, total, n, omega, phase0, gain);
+    nco_mix_single<<<grid, kThreads, 0, stream>>>(x, out, rows, n, omega, phase0, gain);
   }
   return cudaGetLastError();
 }

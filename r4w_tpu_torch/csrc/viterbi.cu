@@ -50,18 +50,34 @@
 // - FP32 adds and compares only, no fused multiply-add and no TF32, so the
 //   result is bit-exact against the plain PyTorch version.
 //
-// The traceback is one thread per lane, lanes on threadIdx.x, so each
-// step's loads and stores are coalesced in the (T, G, L) layout. The state
-// chain is serial, but the decision words of a step do not depend on it:
-// each thread loads all G words of P steps at once, so the loads overlap,
-// then walks the P steps in registers, choosing its word with a select
-// chain.
+// The traceback is one thread per lane and one warp of 32 lanes a block.
+// What bounds it is each lane's serial chain of steps: at the decode
+// bench's 4096 lanes there is one warp an SM, so no other warp hides a
+// step's latency, and the design keeps global memory off the chain. In the
+// (T, G, L) layout a (step, word) row of the block's lanes is 128
+// contiguous bytes. Walking from the top of the frame down, the block
+// brings chunks of steps (16 KB: 128/G steps of G words) into a ring of
+// three stages in shared memory with cp.async (16 bytes a thread where the
+// lanes allow it), two chunks in flight while the chain walks the third.
+// The chunks are cut at multiples of the chunk from step 0, so the top one
+// is the ragged one. A step reads its one word by address,
+// stage[(t * G + state / W) * 32 + lane]: the bank is the lane, and there is
+// no select chain and no register array indexed by the state. A step
+// shifts the state left by one and brings the new bit in below the word
+// index (W = 16 whenever G > 1), so the state at the top of four steps
+// already names all four words: the group reads them together, and the
+// serial chain is a few integer ops a step. Each step's bit goes straight
+// to bits[t, lane], one coalesced 128-byte store a warp.
 
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 32;      // lanes per block of the traceback
+constexpr int kTracebackStages = 3;  // chunks of decisions in the traceback's ring
+constexpr int kTracebackGroup = 4;   // steps whose words one state names
 constexpr int kMaxStates = 128;   // K <= 8
 constexpr int kStaticSharedBytes = 48 * 1024;  // a block's shared memory without opting in
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -81,6 +97,16 @@ struct Packing {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -272,43 +298,98 @@ __global__ void viterbi_forward_kernel(const float* __restrict__ bm, const CodeT
   }
 }
 
+// Stage rows [row0, row0 + n_rows) of the (steps * G, lanes) decisions, the
+// block's lanes [lane0, lane0 + lb), as dst[row * 32 + l]. `vec`: lanes is a
+// multiple of 4 and dec is 16-byte aligned, so a full block's row is eight
+// 16-byte pieces.
+__device__ __forceinline__ void stage_decisions(int* dst, const int* __restrict__ dec,
+                                                int row0, int n_rows, int lanes, int lane0,
+                                                int lb, bool vec) {
+  const int* src = dec + static_cast<size_t>(row0) * lanes + lane0;
+  if (lb == kThreads && vec) {
+    const int piece = 4 * (threadIdx.x % 8);
+    for (int row = threadIdx.x / 8; row < n_rows; row += kThreads / 8) {
+      cp_async16(dst + row * kThreads + piece, src + static_cast<size_t>(row) * lanes + piece);
+    }
+  } else {
+    // 4 bytes a copy: thread i takes pairs i, i + 32, ... of the row-major
+    // (n_rows, lb) pairs, stepped with adds and a carry, no division a copy
+    const int step_rows = kThreads / lb, step_lanes = kThreads % lb;
+    int row = threadIdx.x / lb, l = threadIdx.x % lb;
+    while (row < n_rows) {
+      cp_async4(dst + row * kThreads + l, src + static_cast<size_t>(row) * lanes + l);
+      row += step_rows;
+      l += step_lanes;
+      if (l >= lb) {
+        l -= lb;
+        ++row;
+      }
+    }
+  }
+}
+
 template <int S>
 __global__ void __launch_bounds__(kThreads)
 viterbi_traceback_kernel(const int* __restrict__ dec,
                          const int* __restrict__ start_state,
-                         int* __restrict__ bits, int steps, int lanes) {
+                         int* __restrict__ bits, int steps, int lanes, int chunk, bool vec) {
   constexpr int kHalf = S / 2;
   constexpr int kWidth = Packing<S>::kWidth;
   constexpr int kWords = Packing<S>::kWords;
-  constexpr int kBatch = 32 / kWords;  // steps whose words are loaded at once
+  // a group's words follow from the state at its top only while the bits
+  // brought in stay below the word index
+  static_assert(kWords == 1 || (1 << (kTracebackGroup - 1)) <= kWidth, "group too long");
+  extern __shared__ __align__(16) int tb_stage[];  // kTracebackStages chunks
 
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= lanes) return;
+  const int stage_ints = chunk * kWords * kThreads;
+  const int lane0 = blockIdx.x * kThreads;
+  const int lb = min(kThreads, lanes - lane0);
+  const bool active = static_cast<int>(threadIdx.x) < lb;
   const size_t n_lanes = static_cast<size_t>(lanes);
-  int state = start_state != nullptr ? start_state[lane] : 0;
+  unsigned state = 0;
+  if (active && start_state != nullptr) state = start_state[lane0 + threadIdx.x] & (S - 1);
 
-  for (int top = steps - 1; top >= 0; top -= kBatch) {
-    int words[kBatch][kWords];
+  // walk k covers chunk n_chunks - 1 - k, steps [c * chunk, min((c + 1) * chunk, steps))
+  const int n_chunks = (steps + chunk - 1) / chunk;
+  auto stage_walk = [&](int k) {
+    const int c = n_chunks - 1 - k;
+    stage_decisions(tb_stage + (k % kTracebackStages) * stage_ints, dec, c * chunk * kWords,
+                    min(chunk, steps - c * chunk) * kWords, lanes, lane0, lb, vec);
+  };
 #pragma unroll
-    for (int p = 0; p < kBatch; ++p) {
-      const int t = top - p;
+  for (int k = 0; k < kTracebackStages - 1; ++k) {
+    if (k < n_chunks) stage_walk(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n_chunks; ++k) {
+    __syncwarp();  // the stage refilled next, walk k - 1's, is spent
+    if (k + kTracebackStages - 1 < n_chunks) stage_walk(k + kTracebackStages - 1);
+    cp_async_commit();
+    cp_async_wait<kTracebackStages - 1>();  // walk k's chunk has landed
+    __syncwarp();                           // in every thread's copies
+
+    const int t0 = (n_chunks - 1 - k) * chunk;
+    const int n = min(chunk, steps - t0);
+    const int* words = tb_stage + (k % kTracebackStages) * stage_ints + threadIdx.x;
+    int* out = bits + static_cast<size_t>(t0 + n - 1) * n_lanes + lane0 + threadIdx.x;
+    auto step = [&](unsigned word) {
+      if (active) *out = static_cast<int>(state / kHalf);
+      out -= n_lanes;
+      state = ((state << 1) & (S - 2)) | ((word >> (state % kWidth)) & 1u);
+    };
+    // whole groups with no guard on any step, then the chunk's last few steps
+    int top = n - 1;
+    for (; top >= kTracebackGroup - 1; top -= kTracebackGroup) {
+      unsigned word[kTracebackGroup];
 #pragma unroll
-      for (int g = 0; g < kWords; ++g) {
-        words[p][g] = t >= 0 ? dec[(static_cast<size_t>(t) * kWords + g) * n_lanes + lane]
-                             : 0;
+      for (int p = 0; p < kTracebackGroup; ++p) {
+        const unsigned row = ((state << p) & (S - 1)) / kWidth;  // the word of step top - p
+        word[p] = words[((top - p) * kWords + row) * kThreads];
       }
-    }
 #pragma unroll
-    for (int p = 0; p < kBatch; ++p) {
-      const int t = top - p;
-      if (t >= 0) {
-        bits[static_cast<size_t>(t) * n_lanes + lane] = state / kHalf;
-        int word = words[p][0];
-#pragma unroll
-        for (int g = 1; g < kWords; ++g) word = state / kWidth == g ? words[p][g] : word;
-        state = 2 * (state % kHalf) + ((word >> (state % kWidth)) & 1);
-      }
+      for (int p = 0; p < kTracebackGroup; ++p) step(word[p]);
     }
+    for (; top >= 0; --top) step(words[(top * kWords + state / kWidth) * kThreads]);
   }
 }
 
@@ -361,11 +442,15 @@ cudaError_t launch_forward(const float* bm, const CodeTable& table, int* dec,
 }
 
 template <int S>
-cudaError_t launch_traceback(const int* dec, const int* start_state, int* bits,
-                             int steps, int lanes, cudaStream_t stream) {
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  viterbi_traceback_kernel<S><<<blocks, kThreads, 0, stream>>>(dec, start_state, bits,
-                                                               steps, lanes);
+cudaError_t launch_traceback(const int* dec, const int* start_state, int* bits, int steps,
+                             int lanes, int chunk, int blocks, cudaStream_t stream) {
+  const long long smem = 4LL * kTracebackStages * chunk * Packing<S>::kWords * kThreads;
+  if (smem > kStaticSharedBytes || static_cast<long long>(blocks) * kThreads < lanes) {
+    return cudaErrorInvalidConfiguration;
+  }
+  const bool vec = lanes % 4 == 0 && (reinterpret_cast<uintptr_t>(dec) & 15) == 0;
+  viterbi_traceback_kernel<S><<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
+      dec, start_state, bits, steps, lanes, chunk, vec);
   return cudaGetLastError();
 }
 
@@ -420,27 +505,36 @@ extern "C" int r4w_viterbi_forward(const float* bm, const int* code_idx, int* de
 
 // dec: (steps, G, lanes) int32 and bits: (steps, lanes) int32, contiguous
 // on the current device; start_state: (lanes,) int32 states in [0, S) on
-// the device, or NULL for state 0 in every lane. Launches on `stream`
-// without synchronising and returns the launch's cudaError_t.
+// the device, or NULL for state 0 in every lane. The plan comes from
+// kernels/viterbi.py:traceback_plan: chunk >= 1 steps staged at a time,
+// three chunks within 48 KB of shared memory; blocks of 32 lanes covering
+// the lanes. Launches on `stream` without synchronising and returns the
+// launch's cudaError_t.
 extern "C" int r4w_viterbi_traceback(const int* dec, const int* start_state, int* bits,
-                                     int steps, int lanes, int constraint,
-                                     cudaStream_t stream) {
-  if (constraint < 3 || constraint > 8 || steps < 0 || lanes < 0) {
+                                     int steps, int lanes, int constraint, int chunk,
+                                     int blocks, cudaStream_t stream) {
+  if (constraint < 3 || constraint > 8 || steps < 0 || lanes < 0 || chunk < 1 || blocks < 1) {
     return cudaErrorInvalidValue;
   }
   if (lanes == 0 || steps == 0) return cudaSuccess;
   switch (1 << (constraint - 1)) {
     case 4:
-      return launch_traceback<4>(dec, start_state, bits, steps, lanes, stream);
+      return launch_traceback<4>(dec, start_state, bits, steps, lanes, chunk, blocks,
+                                 stream);
     case 8:
-      return launch_traceback<8>(dec, start_state, bits, steps, lanes, stream);
+      return launch_traceback<8>(dec, start_state, bits, steps, lanes, chunk, blocks,
+                                 stream);
     case 16:
-      return launch_traceback<16>(dec, start_state, bits, steps, lanes, stream);
+      return launch_traceback<16>(dec, start_state, bits, steps, lanes, chunk, blocks,
+                                  stream);
     case 32:
-      return launch_traceback<32>(dec, start_state, bits, steps, lanes, stream);
+      return launch_traceback<32>(dec, start_state, bits, steps, lanes, chunk, blocks,
+                                  stream);
     case 64:
-      return launch_traceback<64>(dec, start_state, bits, steps, lanes, stream);
+      return launch_traceback<64>(dec, start_state, bits, steps, lanes, chunk, blocks,
+                                  stream);
     default:
-      return launch_traceback<128>(dec, start_state, bits, steps, lanes, stream);
+      return launch_traceback<128>(dec, start_state, bits, steps, lanes, chunk, blocks,
+                                   stream);
   }
 }

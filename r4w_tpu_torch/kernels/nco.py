@@ -9,7 +9,10 @@ the host, and the phase takes the reference's float32 roundings: the
 product rounded, then the sum rounded, never one fused multiply-add. At
 the phases a long stream reaches, one ulp of the phase is a sizeable
 angle, so a fused product-sum would already be visible. The kernel is
-bound by device-memory bytes; its design is in the source's header.
+bound by device-memory bytes: a thread computes the carrier of its column
+(or column pair) once and applies it to a tile of ROW_TILE rows, as the
+plain version builds the carrier once for all rows. `nco_plan` lays out
+the launch; the design is in the source's header.
 
 `nco_mix_dispatch` is what the mixers call: the plain version for a
 tensor on the CPU, the kernel for a tensor on a CUDA device, and an error
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,6 +33,29 @@ import torch
 from r4w_tpu_torch.core.hostio import cis
 from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE
 from r4w_tpu_torch.kernels import _build
+
+
+THREADS = 256       # a block of the kernel
+ROW_TILE = 8        # rows that share one carrier, kRowTile in the kernel
+MAX_GRID_Y = 65535  # row tiles past it are walked with a stride
+
+
+class NcoPlan(NamedTuple):
+    """One launch of the NCO kernel."""
+    row_tile: int   # rows a thread walks with one carrier
+    blocks_x: int   # blocks of THREADS columns (or column pairs)
+    blocks_y: int   # blocks of row tiles, at most MAX_GRID_Y
+    pairs: bool     # a thread moves columns (2p, 2p+1) with 16-byte accesses
+
+
+def nco_plan(rows: int, n: int, aligned: bool) -> NcoPlan:
+    """The host's plan for (rows, n) complex64 samples: column pairs when n is
+    even and both pointers are 16-byte aligned (`aligned`), else one column a
+    thread; one block row per tile of ROW_TILE rows, up to MAX_GRID_Y."""
+    pairs = aligned and n % 2 == 0
+    items = n // 2 if pairs else n
+    return NcoPlan(ROW_TILE, max(1, -(-items // THREADS)),
+                   max(1, min(-(-rows // ROW_TILE), MAX_GRID_Y)), pairs)
 
 
 def omega(freq_hz: float, sample_rate: float) -> float:
@@ -46,8 +73,8 @@ def nco_phase(n: int, freq_hz: float, sample_rate: float, phase0: float = 0.0,
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load_library("nco_mix").r4w_nco_mix
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 3 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 3
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,10 +104,12 @@ def nco_mix_cuda(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: fl
     out = torch.empty_like(x)
     if rows * n == 0:
         return out
+    plan = nco_plan(rows, n, (x.data_ptr() | out.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), out.data_ptr(), rows, n, omega(freq_hz, sample_rate),
-                        float(np.float32(phase0)), float(np.float32(gain)), stream)
+                        float(np.float32(phase0)), float(np.float32(gain)), plan.blocks_x,
+                        plan.blocks_y, int(plan.pairs), stream)
     if err != 0:
         raise RuntimeError(f"r4w_nco_mix launch failed with cudaError {err}")
     nco_mix.launches += 1

@@ -14,9 +14,13 @@ predecessors' metrics, the add-compare-selects, and ballots whose bits are
 the decision words. A block holds a few lanes (`forward_plan`) and stages
 chunks of steps through shared memory, the branch metrics double-buffered
 with ``cp.async`` and the decisions written back as rows. The traceback
-runs one thread per lane. The TPU's 0/1 selection matmuls, bf16 3-split
-and decision-pack matmul existed only because Mosaic has no gather, and
-are not carried over.
+runs one thread per lane, 32 lanes a block, and brings the decisions into
+a ring of shared-memory stages with ``cp.async`` from the top of the frame
+down (`traceback_plan`); each step reads its one word there by address,
+and the state at the top of a group of four steps names the words of all
+four, so the serial chain is a few integer ops a step. The TPU's 0/1
+selection matmuls, bf16 3-split and decision-pack matmul existed only
+because Mosaic has no gather, and are not carried over.
 
 Layouts are the reference kernels': branch metrics ``bm`` (T, C, L)
 float32 with C = 2^R; decisions (T, G, L) int32, the decision of target
@@ -54,6 +58,9 @@ BLOCK_THREADS = 256        # the forward kernel's block, where there are lanes e
 MAX_LANES_PER_BLOCK = 32   # a staged row of one (step, codeword) is at most 128 bytes
 MAX_CHUNK = 32             # steps staged at a time
 STATIC_SMEM_BYTES = 48 * 1024
+TRACEBACK_LANES = 32       # the traceback's block: one warp, a thread per lane
+TRACEBACK_STAGES = 3       # chunks in the traceback's ring, kTracebackStages in the kernel
+TRACEBACK_CHUNK_BYTES = 16 * 1024
 
 
 def _check_code(constraint: int, polys) -> None:
@@ -108,6 +115,24 @@ def forward_plan(constraint: int, n_codes: int, lanes: int) -> ForwardPlan:
     while chunk > 1 and chunk * step_bytes > STATIC_SMEM_BYTES:
         chunk //= 2
     return ForwardPlan(group, lanes_per_block, chunk, threads, chunk * step_bytes)
+
+
+class TracebackPlan(NamedTuple):
+    """One launch of the traceback kernel."""
+    chunk: int       # steps staged in shared memory at a time
+    stages: int      # chunks in the ring: one walked, the others in flight
+    smem_bytes: int  # the ring
+    blocks: int      # of TRACEBACK_LANES lanes
+
+
+def traceback_plan(constraint: int, lanes: int) -> TracebackPlan:
+    """The host's plan for the traceback: chunks of TRACEBACK_CHUNK_BYTES, G
+    words of TRACEBACK_LANES lanes a step (32 steps at K = 7, 16 at K = 8),
+    TRACEBACK_STAGES of them in shared memory, one block per 32 lanes."""
+    row_bytes = 4 * TRACEBACK_LANES * ((1 << (constraint - 1)) // word_width(constraint))
+    chunk = TRACEBACK_CHUNK_BYTES // row_bytes
+    return TracebackPlan(chunk, TRACEBACK_STAGES, TRACEBACK_STAGES * chunk * row_bytes,
+                         -(-lanes // TRACEBACK_LANES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,7 +191,7 @@ def _kernels():
     forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     forward.restype = ctypes.c_int
     traceback = lib.r4w_viterbi_traceback
-    traceback.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    traceback.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     traceback.restype = ctypes.c_int
     return forward, traceback
 
@@ -233,10 +258,11 @@ def viterbi_traceback_cuda(dec: torch.Tensor, constraint: int, polys,
     bits = torch.empty((steps, lanes), dtype=SYMBOL_DTYPE, device=dec.device)
     if lanes == 0 or steps == 0:
         return bits
+    plan = traceback_plan(constraint, lanes)
     with torch.cuda.device(dec.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels()[1](dec.data_ptr(), start_ptr, bits.data_ptr(), steps, lanes,
-                            constraint, stream)
+                            constraint, plan.chunk, plan.blocks, stream)
     if err != 0:
         raise RuntimeError(f"r4w_viterbi_traceback launch failed with cudaError {err}")
     viterbi_traceback.launches += 1

@@ -3,7 +3,9 @@
 On the CPU each module runs its plain PyTorch version, held here against
 the Pallas kernels in interpret mode (1-D, real for the FIR, as the
 reference's kernels take) and against float64 numpy for what the port's
-kernels add: complex input, a batch axis, K = 1 and N < K. The CUDA
+kernels add: complex input, a batch axis, K = 1 and N < K. The NCO
+kernel's launch plan and a numpy model of its row-tiled design (one
+carrier per column for a tile of rows) are checked here too. The CUDA
 kernels run only on a card: their tests are marked ``cuda`` and skip
 elsewhere.
 """
@@ -19,6 +21,8 @@ from r4w_tpu_torch.kernels import fir, nco
 ABS_TOL_FIR = 1e-4  # tests/test_kernels_sync_arq.py::test_fir_decimate_kernel_matches_numpy
 ABS_TOL_NCO = 1e-3  # tests/test_kernels_sync_arq.py::test_nco_mix_kernel
 REL_TOL = 1e-5      # of max|y|: float32 sums of up to 64 terms against float64
+MODEL_TOL = 2e-7    # of gain·max|x|: float32 products in another order, sin/cos within an ulp
+MAX_GRID_Y = 65535
 
 
 def _correlate(x: np.ndarray, taps: np.ndarray, factor: int) -> np.ndarray:
@@ -106,6 +110,80 @@ def test_nco_phase_takes_the_reference_roundings(freq_hz, rate, phase0):
     assert nco.omega(freq_hz, rate) == float(w)
 
 
+@pytest.mark.parametrize("rows,n,aligned", [
+    (1, 1 << 20, True), (64, 1 << 20, True), (17, 4097, True), (3, 4096, False), (1, 1, True),
+    (5, 2, True), (16, 256, True), (17, 512, True), (2 ** 21, 4, True), (40, 6, False)])
+def test_nco_plan_covers_every_sample_once(rows, n, aligned):
+    plan = nco.nco_plan(rows, n, aligned)
+    assert plan.pairs == (aligned and n % 2 == 0)  # pairs only when n is even and aligned
+    assert nco.THREADS % 32 == 0 and plan.row_tile == nco.ROW_TILE
+    per = 2 if plan.pairs else 1
+    # the column blocks cover n, and none is empty
+    assert (plan.blocks_x - 1) * nco.THREADS * per < n <= plan.blocks_x * nco.THREADS * per
+    assert 1 <= plan.blocks_y <= MAX_GRID_Y and plan.blocks_x < 2 ** 31
+    tiles = -(-rows // plan.row_tile)
+    assert plan.blocks_y == min(tiles, MAX_GRID_Y)  # past it, the tiles are walked with a stride
+
+
+def _nco_model(x: np.ndarray, freq_hz: float, rate: float, phase0: float, gain: float,
+               aligned: bool) -> np.ndarray:
+    """numpy model of csrc/nco_mix.cu under `nco.nco_plan`: each thread owns a
+    column (or a column pair), computes its carrier once with the reference's
+    float32 roundings, and applies it to the rows of every tile it walks
+    (blockIdx.y, then strides of gridDim.y), the ragged tile masked. Checks
+    that every sample is written exactly once."""
+    rows, n = x.shape
+    plan = nco.nco_plan(rows, n, aligned)
+    per = 2 if plan.pairs else 1
+    w, p0, g = np.float32(nco.omega(freq_hz, rate)), np.float32(phase0), np.float32(gain)
+    out = np.zeros(x.shape, np.complex64)
+    writes = np.zeros(x.shape, np.int64)
+    item = np.arange(plan.blocks_x * nco.THREADS)
+    cols = (item[:, None] * per + np.arange(per)[None, :]).reshape(-1)
+    cols = cols[cols < n]
+    ph = w * cols.astype(np.float32) + p0  # float32: the product rounded, then the sum
+    c = np.cos(ph.astype(np.float64)).astype(np.float32)
+    s = np.sin(ph.astype(np.float64)).astype(np.float32)
+    for by in range(plan.blocks_y):
+        for r0 in range(by * plan.row_tile, rows, plan.blocks_y * plan.row_tile):
+            r = np.arange(r0, min(r0 + plan.row_tile, rows))
+            v = x[np.ix_(r, cols)]
+            out[np.ix_(r, cols)] = (g * (v.real * c - v.imag * s)
+                                    + 1j * (g * (v.real * s + v.imag * c)))
+            writes[np.ix_(r, cols)] += 1
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("rows,n,aligned,freq_hz,rate,phase0,gain", [
+    (1, 3000, True, 2500.0, 1e6, 1.0, 2.0),          # one row: nothing to share
+    (3, 4097, True, 0.25e6, 1e6, 1.0, 1.0),          # odd n: one column a thread
+    (17, 1 << 12, True, -30.72e6 / 8, 30.72e6, 0.0, 1.0),  # a ragged tile of one row
+    (17, 1 << 12, False, 30.72e6 / 4, 30.72e6, 0.3, 2.0),  # misaligned: one column a thread
+    (16, 1 << 14, True, -7.68e6, 30.72e6, 0.0, 1.0),       # whole tiles, phases to 2.5e4
+    (33, 999, True, 2500.0, 1e6, 0.5, 1.0),
+    (2, 1 << 17, True, 30.72e6 / 4, 30.72e6, 1.0, 1.0),    # phases past 105,615 rad
+])
+def test_nco_model_equals_plain_version(rows, n, aligned, freq_hz, rate, phase0, gain):
+    rng = np.random.default_rng(rows * n)
+    x = _noise(rng, (rows, n), True)
+    got = _nco_model(x, freq_hz, rate, phase0, gain, aligned)
+    want = nco.nco_mix(torch.from_numpy(x), freq_hz, rate, phase0, gain).numpy()
+    assert np.max(np.abs(got - want)) <= MODEL_TOL * gain * np.max(np.abs(x))
+
+
+def test_nco_model_walks_row_tiles_past_the_grid(monkeypatch):
+    """More row tiles than the grid holds: each block row walks every
+    blocks_y-th tile (here 2 block rows for 9 tiles, the last one ragged)."""
+    monkeypatch.setattr(nco, "MAX_GRID_Y", 2)
+    rng = np.random.default_rng(5)
+    x = _noise(rng, (70, 300), True)
+    assert nco.nco_plan(70, 300, True).blocks_y == 2
+    got = _nco_model(x, 1e3, 1e5, 0.25, 1.0, True)
+    want = nco.nco_mix(torch.from_numpy(x), 1e3, 1e5, 0.25, 1.0).numpy()
+    assert np.max(np.abs(got - want)) <= MODEL_TOL * np.max(np.abs(x))
+
+
 def test_cpu_tensors_run_plain_versions_and_launch_nothing():
     rng = np.random.default_rng(3)
     x = torch.from_numpy(_noise(rng, (2, 400), True))
@@ -179,3 +257,23 @@ def test_nco_kernel_matches_plain_on_card(rows, n, freq_hz, phase0, gain):
     assert float((got - want).abs().max()) <= REL_TOL * gain * float(x.abs().max())
     want_odd = nco.nco_mix(x.reshape(-1)[1:].reshape(1, -1), freq_hz, 1e6)
     assert float((odd - want_odd).abs().max()) <= REL_TOL * float(x.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4097])
+@pytest.mark.parametrize("rows", [1, 3, 17, 64])
+def test_nco_kernel_row_tiles_on_card(rows, n):
+    """Row counts that are and are not a multiple of the tile, even n (column
+    pairs) and odd n (one column a thread), and a view 8 bytes off 16-byte
+    alignment, at phases past the slow-path threshold."""
+    dev = _card()
+    rng = np.random.default_rng(rows * n)
+    base = torch.from_numpy(_noise(rng, (rows * n + 1,), True)).to(dev)
+    freq, rate = 30.72e6 / 4, 30.72e6
+    for x in (base[:-1].reshape(rows, n), base[1:].reshape(rows, n)):
+        before = nco.nco_mix.launches
+        got = nco.nco_mix_cuda(x, freq, rate, 1.0, 2.0)
+        want = nco.nco_mix(x, freq, rate, 1.0, 2.0)
+        torch.cuda.synchronize()
+        assert nco.nco_mix.launches == before + 1
+        assert float((got - want).abs().max()) <= REL_TOL * 2.0 * float(x.abs().max())

@@ -3,7 +3,9 @@
 On the CPU the dispatchers run the plain versions and launch nothing; the
 module imports without ``nvcc``; the forward kernel's launch plan and a
 numpy model of its warp-per-lane step (shuffle exchange, ballots, words
-cut from the ballots) are checked against the plain version. The CUDA
+cut from the ballots) are checked against the plain version, and so are
+the traceback's plan and a numpy model of its staged walk (chunks from the
+top, a ring of shared-memory stages, four words named by one state). The CUDA
 kernels run only on a card: their tests are marked ``cuda``, decide inside
 the test whether a card exists, and skip elsewhere. Kernel and plain
 version must agree exactly: the kernels do FP32 adds and compares only.
@@ -169,6 +171,121 @@ def test_forward_model_equals_plain_version(constraint, polys):
     np.testing.assert_array_equal(final, want_final.numpy())
 
 
+@pytest.mark.parametrize("lanes", [1, 3, 33, 130, 4096, 100_000])
+@pytest.mark.parametrize("constraint", range(3, 9))
+def test_traceback_plan_fits_a_hopper_block(constraint, lanes):
+    plan = viterbi.traceback_plan(constraint, lanes)
+    words = (1 << (constraint - 1)) // viterbi.word_width(constraint)
+    row_bytes = 4 * viterbi.TRACEBACK_LANES * words
+    assert viterbi.TRACEBACK_LANES == 32  # one whole warp, a thread per lane
+    assert plan.chunk * row_bytes <= viterbi.TRACEBACK_CHUNK_BYTES
+    assert plan.chunk >= 4 and plan.stages >= 2
+    assert plan.smem_bytes == plan.stages * plan.chunk * row_bytes <= STATIC_SHARED_BYTES
+    assert (plan.blocks - 1) * 32 < lanes <= plan.blocks * 32 and plan.blocks < 2 ** 31
+    if constraint == 7:
+        assert plan.chunk == 32 and plan.stages == 3
+    if constraint == 8:
+        assert plan.chunk == 16
+
+
+@pytest.mark.parametrize("n_rows", [1, 5, 64, 128])
+@pytest.mark.parametrize("lb", [1, 2, 3, 20, 31, 32])
+def test_traceback_copy_walk_stages_each_pair_once(lb, n_rows):
+    """The traceback's 4-byte staging (csrc/viterbi.cu:stage_decisions): each
+    of the 32 threads steps through the row-major (n_rows, lb) pairs 32 apart
+    by adding 32 // lb rows and 32 % lb lanes, with a carry; together they
+    stage every pair exactly once."""
+    block = viterbi.TRACEBACK_LANES
+    seen = np.zeros((n_rows, lb), np.int64)
+    for thread in range(block):
+        row, lane = divmod(thread, lb)
+        while row < n_rows:
+            seen[row, lane] += 1
+            row, lane = row + block // lb, lane + block % lb
+            if lane >= lb:
+                row, lane = row + 1, lane - lb
+    assert (seen == 1).all()
+
+
+def _traceback_model(dec: np.ndarray, constraint: int, start=None) -> np.ndarray:
+    """numpy model of csrc/viterbi.cu's traceback under `traceback_plan`:
+    blocks of 32 lanes walk chunks cut at multiples of the chunk from step
+    0, the ragged top one first; walk k's chunk lands in ring stage k mod
+    stages, laid out as the kernel's shared memory, (t·G + w)·32 + lane,
+    while the next stages - 1 chunks are staged ahead; the state at the top
+    of a group of four steps names the rows of all four, and each step reads
+    its word from the stage by that address."""
+    steps, n_words, lanes = dec.shape
+    s = 1 << (constraint - 1)
+    width = viterbi.word_width(constraint)
+    plan = viterbi.traceback_plan(constraint, lanes)
+    block = viterbi.TRACEBACK_LANES
+    chunk, stages = plan.chunk, plan.stages
+    stage_ints = chunk * n_words * block
+    assert 4 * stages * stage_ints == plan.smem_bytes
+    lane = np.arange(plan.blocks * block)
+    blk, l = lane // block, lane % block
+    padded = np.zeros((steps, n_words, lane.size), np.int64)
+    padded[..., :lanes] = dec
+    ring = np.full((plan.blocks, stages * stage_ints), -1, np.int64)
+    n_chunks = -(-steps // chunk)
+    state = np.zeros(lane.size, np.int64)
+    if start is not None:
+        state[:lanes] = start & (s - 1)
+    bits = np.full((steps, lanes), -1, np.int64)
+
+    def stage_walk(k):
+        t0 = (n_chunks - 1 - k) * chunk
+        n = min(chunk, steps - t0)
+        rows = padded[t0:t0 + n].reshape(n * n_words, plan.blocks, block).transpose(1, 0, 2)
+        base = (k % stages) * stage_ints
+        ring[:, base:base + stage_ints] = -1  # nothing of the chunk it replaces survives
+        ring[:, base:base + n * n_words * block] = rows.reshape(plan.blocks, -1)
+
+    def step(t, word):
+        nonlocal state
+        assert (word >= 0).all()  # read from the chunk being walked
+        bits[t] = state[:lanes] >> (constraint - 2)
+        state = ((state << 1) & (s - 2)) | ((word >> (state % width)) & 1)
+
+    for k in range(min(stages - 1, n_chunks)):
+        stage_walk(k)
+    for k in range(n_chunks):
+        if k + stages - 1 < n_chunks:
+            stage_walk(k + stages - 1)
+        t0 = (n_chunks - 1 - k) * chunk
+        n = min(chunk, steps - t0)
+        base = (k % stages) * stage_ints
+        top = n - 1
+        while top >= 3:  # whole groups of four: the state at the top names their rows
+            rows = [((state << p) & (s - 1)) // width for p in range(4)]
+            words = [ring[blk, base + ((top - p) * n_words + rows[p]) * block + l]
+                     for p in range(4)]
+            for p in range(4):
+                step(t0 + top - p, words[p])
+            top -= 4
+        for t in range(top, -1, -1):  # the chunk's last few steps, one at a time
+            step(t0 + t, ring[blk, base + (t * n_words + state // width) * block + l])
+    return bits.astype(np.int32)
+
+
+@pytest.mark.parametrize("steps", [37, 300, 2054])
+@pytest.mark.parametrize("constraint,polys", ALL_CODES[:7])
+def test_traceback_model_equals_plain_version(constraint, polys, steps):
+    """Random decision words (every path through the words, not only a
+    decoder's), lanes 1/3/33/130 (a block, ragged blocks), T not a multiple
+    of any chunk but at 2054, with and without a start state."""
+    s, width = 1 << (constraint - 1), viterbi.word_width(constraint)
+    for lanes in (1, 3, 33, 130):
+        rng = np.random.default_rng(steps * lanes + constraint)
+        dec = rng.integers(0, 1 << width, (steps, s // width, lanes)).astype(np.int32)
+        for start in (None, rng.integers(0, s, lanes).astype(np.int32)):
+            want = viterbi.viterbi_traceback(torch.from_numpy(dec), constraint, polys,
+                                             None if start is None else torch.from_numpy(start))
+            got = _traceback_model(dec, constraint, start)
+            np.testing.assert_array_equal(got, want.numpy(), err_msg=f"lanes {lanes}")
+
+
 def test_module_imports_without_nvcc():
     code = ("import sys\n"
             "import r4w_tpu_torch.kernels.viterbi as v\n"
@@ -229,3 +346,26 @@ def test_forward_kernel_on_ragged_shapes_on_card(constraint, polys):
             want_dec, want_final = viterbi.viterbi_forward(bm, constraint, polys)
             torch.cuda.synchronize()
             assert torch.equal(dec, want_dec) and torch.equal(final, want_final), (lanes, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 33, 4096])
+@pytest.mark.parametrize("constraint,polys", ALL_CODES[:7])
+def test_traceback_kernel_on_ragged_shapes_on_card(constraint, polys, lanes):
+    """Random decision words, T ragged against every chunk and at the decode
+    bench's 2054, with and without a start state, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    s, width = 1 << (constraint - 1), viterbi.word_width(constraint)
+    for steps in (37, 300, 2054):
+        rng = np.random.default_rng(steps * lanes + constraint)
+        dec = torch.from_numpy(rng.integers(0, 1 << width, (steps, s // width, lanes))
+                               .astype(np.int32)).cuda()
+        start = torch.from_numpy(rng.integers(0, s, lanes).astype(np.int32)).cuda()
+        for state in (None, start):
+            before = viterbi.viterbi_traceback.launches
+            got = viterbi.viterbi_traceback_cuda(dec, constraint, polys, state)
+            want = viterbi.viterbi_traceback(dec, constraint, polys, state)
+            torch.cuda.synchronize()
+            assert viterbi.viterbi_traceback.launches == before + 1
+            assert torch.equal(got, want), (steps, state is None)
