@@ -11,10 +11,12 @@ kernel), the K=7 soft Viterbi decode (the full-size decode bench and
 MIL-STD-188-110 round trips with autobaud; forward-ACS and traceback
 kernels) and the digital down-converter (the full-size DDC bench, a
 DUC -> DDC round trip, a streamed frequency-translating FIR and a
-rational resampler; FIR-decimate and NCO kernels). Each phase prints one
-line; a failed phase raises, and the exit code is then non-zero. The
-second-to-last line is the kernel table as JSON, the last line the device
-record.
+rational resampler; FIR-decimate and NCO kernels). A last phase holds the
+card's results of functions no path runs (the FIR family's other users,
+vco, puncturing, windows) against the port's own CPU results. Each phase
+prints at least one line; a failed phase raises, and the exit code is then
+non-zero. The second-to-last line is the kernel table as JSON, the last
+line the device record.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 
 from r4w_tpu_torch import create_waveform
 from r4w_tpu_torch.channel import awgn
+from r4w_tpu_torch.core import windows
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
                                  DDC_STREAMS, SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB,
                                  VITERBI_INFO_BITS, VITERBI_LANES, ddc_bench, ddc_signal, entry,
@@ -63,8 +66,11 @@ VITERBI_ALL_CODES = ((3, (0o7, 0o5)), (4, (0o17, 0o13)), (5, (0o23, 0o35)), (6, 
                      (4, (0o16, 0o13)), (7, (0o170, 0o133)))
 VITERBI_ALL_LANES = (1, 3, 33, 130, 2100, 4096)
 VITERBI_RAGGED_STEPS = (37, 300)  # not multiples of any staging chunk (32 or 16 steps)
-# the traceback kernel's template instances in the SASS, one per state count
-TRACEBACK_INSTANCES = viterbi.MAX_CONSTRAINT - viterbi.MIN_CONSTRAINT + 1
+# kernels whose every template instance must be in the SASS with no LDL/STL:
+# the traceback's, one per state count; the FIR's, one per sample type
+SASS_GUARDS = {"viterbi": ("viterbi_traceback_kernel",
+                           viterbi.MAX_CONSTRAINT - viterbi.MIN_CONSTRAINT + 1),
+               "fir_decimate": ("fir_decimate_kernel", 2)}
 MIL_STEPS = 1440  # one lane's trellis at 2400 bps, short interleave: MIL-STD-188-110's plan
 DECHIRP_RAGGED_ROWS_SF7 = 100_003
 MIL_DATA = bytes([0xA7, 0x1B, 0x3C, 0xD2, 0x55, 0x00, 0xFF, 0x42])  # tests/test_hf_modems.py:23
@@ -75,12 +81,23 @@ DDC_REL_TOL = 1e-4  # max|path - plain path| / max|plain path|
 DDC_TAPS = 63       # the DDC's default lowpass
 FIR_TAPS = (1, 4, 31, 63, 512, 1025)
 FIR_FACTORS = (1, 2, 4, 8)
+FIR_SWEEP_TAPS = (1, 16, 32, 63, 127)  # phase 12's time-against-taps line
 NCO_CASES = ((30.72e6 / 4, 30.72e6), (-30.72e6 / 4, 30.72e6), (30.72e6 / 8, 30.72e6),
              (-30.72e6 / 8, 30.72e6), (2500.0, 1e6))  # freq Hz, sample rate Hz
 # (rows, n): long rows; then row counts that are not a multiple of the kernel's
 # row tile (nco.ROW_TILE), with even n (column pairs) and odd n (one column a thread)
 NCO_SHAPES = ((2, 1 << 20), (3, 4097), (1, 1 << 16), (17, 1 << 16), (17, 4097))
 ROUND_TRIP_SAMPLES = 1 << 17  # baseband samples per stream, ×8 up and back down
+COVERAGE_SHAPE = (8, 1 << 14)  # phase 16's FIR inputs
+VCO_SAMPLES = 1 << 20
+VCO_FREQ_REL_TOL = 1e-3  # tests/test_detect_streammath.py:200, the tone's measured frequency
+# vco's phase against an exact sum of its float32 steps, at VCO_SAMPLES, in float32
+# ulps of the largest phase: a parallel float32 scan's rounding (about 20 on the card)
+VCO_PHASE_ULPS = 128
+MIX_TOL = 1e-4           # max|card - CPU| / max|CPU|, tests/test_torch_filters.py:34
+PUNCTURE_PATTERNS = ([1, 1, 0, 1], [1, 0], [1, 1, 1, 0, 0, 1])  # tests/test_torch_conv.py
+WINDOW_KINDS = ("rect", "hann", "hamming", "blackman", "blackmanharris", "bartlett", "flattop",
+                "kaiser", "gaussian")
 ROUND_TRIP_TONE_HZ = 120e3
 XLATING_BLOCKS = 4
 
@@ -155,8 +172,7 @@ def in_turns(plain, kernel) -> tuple[list[float], list[float]]:
 
 def plain_decimating_fir(taps: torch.Tensor, x: torch.Tensor, factor: int) -> torch.Tensor:
     """`filters.decimating_fir` from zero state with the dispatcher bypassed."""
-    state = x.new_zeros(x.shape[:-1] + (taps.shape[0] - 1,))
-    return fir.fir_decimate(torch.cat([state, x], dim=-1), taps.flip(0), factor)
+    return fir.fir_decimate(x, taps.flip(0), factor, zero_state=True)
 
 
 def fir_bound(rows: int, n: int, k: int, factor: int) -> tuple[float, str]:
@@ -168,41 +184,78 @@ def fir_bound(rows: int, n: int, k: int, factor: int) -> tuple[float, str]:
 def check_fir_kernel(dev: torch.device) -> dict:
     """Phase 12: the FIR-decimate kernel against its plain version over real
     and complex input, 1 and 64 rows, every factor and tap count of the
-    grid and N = 997, 4096+13 and K-1; then timed beside the plain version
-    and the cuDNN conv1d yardstick at the DDC's shape (f = 8) and the
-    DUC's dense shape (f = 1). Returns the kernel-table entry."""
+    grid and N = 997, 4096+13 and K-1; then with the state as a second
+    pointer (given, null for zeros, and a view 8 bytes off 16-byte
+    alignment) at N = 997 and N < K-1; then timed beside the plain version
+    and the cuDNN conv1d yardstick at the DDC's shape (f = 8) and the dense
+    shape (f = 1), with the DDC's own two-pointer call; then real input at
+    both factors, and 1-127 taps beside one copy of x, at that shape.
+    Returns the kernel-table entry."""
     gen = torch.Generator(device=dev).manual_seed(12)
+
+    def samples(shape, complex_):
+        return randn_iq(shape, gen) if complex_ else torch.randn(shape, generator=gen, device=dev)
+
+    def check(label, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"fir_decimate {label}: {got.shape} {got.dtype} vs {want.shape}")
+        if not want.numel():
+            return 0.0
+        _, rel = rel_err(got, want)
+        if not rel < FIR_REL_TOL:
+            raise AssertionError(f"fir_decimate {label}: max|Δ|/max|ref| {rel:.3g}")
+        return rel
+
     cases, worst = 0, 0.0
     for complex_ in (False, True):
         for rows in (1, 64):
             for k in FIR_TAPS:
                 taps = torch.randn(k, generator=gen, device=dev)
                 for n in sorted({997, 4096 + 13, max(k - 1, 1)}):
-                    x = (randn_iq((rows, n), gen) if complex_
-                         else torch.randn((rows, n), generator=gen, device=dev))
+                    x = samples((rows, n), complex_)
                     for factor in FIR_FACTORS:
                         got = fir.fir_decimate_cuda(x, taps, factor)
                         want = fir.fir_decimate(x, taps, factor)
                         torch.cuda.synchronize()
                         cases += 1
-                        if got.shape != want.shape or got.dtype != want.dtype:
-                            raise AssertionError(f"fir_decimate {rows}x{n} K={k} f={factor}: "
-                                                 f"{got.shape} {got.dtype} vs {want.shape}")
-                        if want.numel():
-                            _, rel = rel_err(got, want)
-                            worst = max(worst, rel)
-                            if not rel < FIR_REL_TOL:
-                                raise AssertionError(
-                                    f"fir_decimate {'complex' if complex_ else 'real'} "
-                                    f"{rows}x{n} K={k} f={factor}: max|Δ|/max|ref| {rel:.3g}")
+                        worst = max(worst, check(f"{'complex' if complex_ else 'real'} {rows}x{n} "
+                                                 f"K={k} f={factor}", got, want))
     phase("12 fir kernel", f"{cases} cases (real/complex, rows 1/64, K {FIR_TAPS}, f "
           f"{FIR_FACTORS}, N 997/4109/K-1) match the plain version: worst "
           f"max|Δ|/max|ref| {worst:.3g} < {FIR_REL_TOL}")
+
+    cases, worst, rows = 0, 0.0, 3
+    for complex_ in (False, True):
+        for k in FIR_TAPS:
+            taps = torch.randn(k, generator=gen, device=dev)
+            for n in sorted({997, max((k - 1) // 2, 1)}):
+                x = samples((rows, n), complex_)
+                off = 8 // x.element_size()  # 8 bytes, in samples
+                flat = samples((rows * (k - 1) + off,), complex_)
+                shifted = flat[off:].view(rows, k - 1)
+                if k > 1 and shifted.data_ptr() % 16 != 8:
+                    raise AssertionError(f"the offset state sits at {shifted.data_ptr() % 16} B")
+                for kind, state in (("state", flat[:-off].view(rows, k - 1)), ("zeros", None),
+                                    ("8 B off", shifted)):
+                    for factor in FIR_FACTORS:
+                        got = fir.fir_decimate_cuda(x, taps, factor, state,
+                                                    zero_state=state is None)
+                        want = fir.fir_decimate(x, taps, factor, state, zero_state=state is None)
+                        torch.cuda.synchronize()
+                        cases += 1
+                        worst = max(worst, check(f"{kind} {'complex' if complex_ else 'real'} "
+                                                 f"{rows}x{n} K={k} f={factor}", got, want))
+    phase("12 fir state", f"{cases} cases with the state beside x (given, null for zeros, 8 B "
+          f"off 16-byte alignment; real/complex, K {FIR_TAPS}, f {FIR_FACTORS}, N 997 and "
+          f"N < K-1) match the plain version's concatenation: worst max|Δ|/max|ref| "
+          f"{worst:.3g} < {FIR_REL_TOL}")
 
     rows, n = DDC_STREAMS, DDC_SAMPLES + DDC_TAPS - 1
     taps = torch.from_numpy(filters.design_lowpass(
         DDC_TAPS, DDC_RATE_HZ / (2.5 * DDC_DECIMATION), DDC_RATE_HZ)).to(dev)
     x = randn_iq((rows, n), gen)
+    # the DDC's own call reads the same stream as a 62-sample state beside a 2^20 block
+    state, block = x[:, :DDC_TAPS - 1].contiguous(), x[:, DDC_TAPS - 1:].contiguous()
     entry_row = {}
     for factor, key in ((DDC_DECIMATION, ""), (1, "_dense")):
         got = fir.fir_decimate_cuda(x, taps, factor)
@@ -210,9 +263,13 @@ def check_fir_kernel(dev: torch.device) -> dict:
         abs_err, rel = rel_err(got, want)
         if not rel < FIR_REL_TOL:
             raise AssertionError(f"fir_decimate at ({rows}, {n}) f={factor}: {rel:.3g}")
+        if not torch.equal(fir.fir_decimate_cuda(block, taps, factor, state), got):
+            raise AssertionError(f"fir_decimate f={factor}: state beside the block differs from "
+                                 f"the concatenated stream")
         del got, want
         kern, plain = in_turns(lambda: fir.fir_decimate(x, taps, factor),
                                lambda: fir.fir_decimate_cuda(x, taps, factor))
+        two_pointer = cuda_ms(lambda: fir.fir_decimate_cuda(block, taps, factor, state))
         # the yardstick: cuDNN conv1d in full FP32 on the (rows, 2, n) real and
         # imaginary planes with the taps repeated, groups=2; the layout copy untimed
         planes = torch.view_as_real(x).permute(0, 2, 1).contiguous()
@@ -228,7 +285,8 @@ def check_fir_kernel(dev: torch.device) -> dict:
         b_ms, b_by = fir_bound(rows, n, DDC_TAPS, factor)
         ms = sum(kern) / 2
         entry_row.update({f"ms{key}": ms, f"plain_ms{key}": sum(plain) / 2,
-                          f"bound_ms{key}": b_ms, f"library_ms{key}": library})
+                          f"bound_ms{key}": b_ms, f"library_ms{key}": library,
+                          f"ms_two_pointer{key}": two_pointer})
         if not key:
             entry_row.update({"max_abs_err": abs_err, "bound_by": b_by,
                               "shape": [rows, n, DDC_TAPS, factor]})
@@ -240,6 +298,37 @@ def check_fir_kernel(dev: torch.device) -> dict:
               f"{library:.4f} ms (mean of "
               f"{TIMED_LAUNCHES}); bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.2f}% of it; "
               f"max|Δ| {abs_err:.4g}")
+        phase("12 timing", f"fir_decimate f={factor}: the DDC's call, a ({rows}, {DDC_TAPS - 1}) "
+              f"state beside a ({rows}, {DDC_SAMPLES}) block (equal bit for bit), "
+              f"{two_pointer:.4f} ms")
+    del state, block
+
+    # real float32 input at the same shape: half the bytes, the same FMAs
+    xr = torch.randn((rows, n), generator=gen, device=dev)
+    for factor, key in ((DDC_DECIMATION, ""), (1, "_dense")):
+        _, rel = rel_err(fir.fir_decimate_cuda(xr, taps, factor), fir.fir_decimate(xr, taps, factor))
+        if not rel < FIR_REL_TOL:
+            raise AssertionError(f"fir_decimate real ({rows}, {n}) f={factor}: {rel:.3g}")
+        entry_row[f"ms_real{key}"] = cuda_ms(lambda: fir.fir_decimate_cuda(xr, taps, factor))
+        phase("12 real", f"fir_decimate float32 ({rows}, {n}) K={DDC_TAPS} f={factor}: "
+              f"{entry_row[f'ms_real{key}']:.4f} ms (mean of {TIMED_LAUNCHES}), max|Δ|/max|ref| "
+              f"{rel:.3g} < {FIR_REL_TOL}")
+    del xr
+
+    # where the time goes: the kernel from 1 to 127 taps beside one copy of x,
+    # which moves the bytes the kernel must at f = 1
+    y = torch.empty_like(x)
+    copy = cuda_ms(lambda: y.copy_(x))
+    del y
+    entry_row["ms_copy"] = copy
+    for factor in (DDC_DECIMATION, 1):
+        by_k = {}
+        for k in FIR_SWEEP_TAPS:
+            taps_k = torch.randn(k, generator=gen, device=dev)
+            by_k[k] = cuda_ms(lambda: fir.fir_decimate_cuda(x, taps_k, factor))
+        entry_row[f"ms_by_k_f{factor}"] = {str(k): t for k, t in by_k.items()}
+        phase("12 taps", f"fir_decimate ({rows}, {n}) f={factor}: " + ", ".join(
+            f"K={k} {t:.4f}" for k, t in by_k.items()) + f" ms; x.copy_ {copy:.4f} ms")
     return entry_row
 
 
@@ -384,6 +473,94 @@ def drive_ddc_path(dev: torch.device) -> None:
         raise AssertionError(f"rational_resample 3/2: {tuple(y.shape)} on {y.device}, {rel:.3g}")
     phase("14 rational_resample", f"3/2 on {tuple(x.shape)} -> {tuple(y.shape)} on the card, "
           f"max|Δ|/max|plain| {rel:.3g}")
+
+
+def check_card_against_cpu(dev: torch.device) -> None:
+    """Phase 16: functions that no path above runs, on the card against the
+    port's own CPU results on the same input: the FIR family's other users
+    within FIR_REL_TOL, vco's tone frequency at 2^20 samples within the
+    reference test's 1e-3, its phase there within VCO_PHASE_ULPS of an exact
+    sum and its samples at 4096 within MIX_TOL, puncture, depuncture and
+    make_window bit for bit."""
+    gen = torch.Generator().manual_seed(16)
+    x = torch.complex(torch.randn(COVERAGE_SHAPE, generator=gen),
+                      torch.randn(COVERAGE_SHAPE, generator=gen))
+    xr = torch.randn(COVERAGE_SHAPE, generator=gen)
+    taps = filters.design_lowpass(31, 0.1, 1.0)
+    cases = (("interpolating_fir", lambda v: (filters.interpolating_fir(taps, v, 4),), x),
+             ("polyphase_interpolate", lambda v: (resample.polyphase_interpolate(v, taps, 3),), x),
+             ("halfband_decimate", lambda v: (resample.halfband_decimate(v),), x),
+             ("moving_average", lambda v: filters.moving_average(v, 16), xr),
+             ("moving_rms", lambda v: (filters.moving_rms(v, 8),), x))
+    worst = 0.0
+    for name, fn, arg in cases:
+        for got, want in zip(fn(arg.to(dev)), fn(arg)):
+            if not (got.is_cuda and got.shape == want.shape and got.dtype == want.dtype):
+                raise AssertionError(f"{name}: {got.shape} {got.dtype} on {got.device}, CPU "
+                                     f"{want.shape} {want.dtype}")
+            _, rel = rel_err(got.cpu(), want)
+            worst = max(worst, rel)
+            if not rel < FIR_REL_TOL:
+                raise AssertionError(f"{name}: card vs CPU max|Δ|/max|CPU| {rel:.3g}")
+    phase("16 card vs cpu", f"{', '.join(c[0] for c in cases)} on {tuple(x.shape)} equal the "
+          f"CPU's results: worst max|Δ|/max|CPU| {worst:.3g} < {FIR_REL_TOL}")
+
+    fs, sens = 100e3, 2000.0  # tests/test_detect_streammath.py:194-200: 0.5 units -> 1 kHz
+    freqs = {}
+    for where in ("cpu", dev):
+        y = stream_math.vco(torch.full((VCO_SAMPLES,), 0.5, device=where), sens, fs)
+        step = torch.angle(y[1:] * y[:-1].conj()).double().mean()
+        freqs[str(torch.device(where).type)] = float(step) * fs / (2 * math.pi)
+    card, cpu = freqs["cuda"], freqs["cpu"]
+    if not (abs(card - cpu) <= VCO_FREQ_REL_TOL * cpu
+            and abs(card - 1e3) <= VCO_FREQ_REL_TOL * 1e3):
+        raise AssertionError(f"vco tone at {VCO_SAMPLES} samples: card {card} Hz, CPU {cpu} Hz")
+    ctrl = torch.rand((2, VCO_SAMPLES), generator=gen) * 2.0 - 1.0
+    # the port's own float32 steps, summed exactly
+    exact = torch.cumsum((2.0 * math.pi * sens * ctrl / fs).double(), dim=-1)
+    phase_err = {}
+    for where in ("cpu", dev):
+        y = stream_math.vco(ctrl.to(where), sens, fs).cpu()
+        phase_err[str(torch.device(where).type)] = float(
+            torch.angle(y.to(torch.complex128) * torch.polar(torch.ones_like(exact), -exact))
+            .abs().max())
+    ulp = float(torch.finfo(torch.float32).eps) * float(exact.abs().max())
+    if not max(phase_err.values()) <= VCO_PHASE_ULPS * ulp:
+        raise AssertionError(f"vco phase at {VCO_SAMPLES} samples drifts {phase_err} rad from "
+                             f"its exact sum, beyond {VCO_PHASE_ULPS} float32 ulps ({ulp:.3g} rad)")
+    short = ctrl[:, :4096]
+    _, rel = rel_err(stream_math.vco(short.to(dev), sens, fs).cpu(),
+                     stream_math.vco(short, sens, fs))
+    if not rel < MIX_TOL:
+        raise AssertionError(f"vco at 4096 samples: card vs CPU max|Δ|/max|CPU| {rel:.3g}")
+    phase("16 vco", f"constant control at {VCO_SAMPLES} samples: tone {card:.6f} Hz on the card, "
+          f"{cpu:.6f} Hz on the CPU (1 kHz ± {VCO_FREQ_REL_TOL:g}); random control at 4096 "
+          f"samples: max|Δ|/max|CPU| {rel:.3g} < {MIX_TOL}; at {VCO_SAMPLES}: max phase error "
+          f"against a float64 cumsum {phase_err['cuda']:.3g} rad on the card (parallel float32 "
+          f"scan), {phase_err['cpu']:.3g} rad on the CPU, both within {VCO_PHASE_ULPS} float32 ulps "
+          f"of max|φ| ({ulp:.3g} rad each)")
+
+    coded = torch.randint(0, 2, (COVERAGE_SHAPE[0], 4800), generator=gen, dtype=torch.int32)
+    for pattern in PUNCTURE_PATTERNS:
+        kept = convolutional.puncture(coded.to(dev), pattern)
+        if not (kept.is_cuda and torch.equal(kept.cpu(), convolutional.puncture(coded, pattern))):
+            raise AssertionError(f"puncture {pattern}: card differs from CPU")
+        soft = 1.0 - 2.0 * kept.float()
+        for fill in (0.0, 0.5):
+            got = convolutional.depuncture(soft, pattern, coded.shape[-1], fill)
+            if not (got.is_cuda and torch.equal(got.cpu(), convolutional.depuncture(
+                    soft.cpu(), pattern, coded.shape[-1], fill))):
+                raise AssertionError(f"depuncture {pattern} fill {fill}: card differs from CPU")
+    for kind in WINDOW_KINDS:
+        for n in (1, 2, 33, 64, 4096):
+            got = windows.make_window(kind, n, device=dev)
+            if not got.is_cuda:
+                raise AssertionError(f"make_window {kind} {n} on {got.device}")
+            torch.testing.assert_close(got.cpu(), windows.make_window(kind, n, device="cpu"),
+                                       rtol=0, atol=0, equal_nan=True)
+    phase("16 card vs cpu", f"puncture/depuncture ({len(PUNCTURE_PATTERNS)} patterns, fill 0 and "
+          f"0.5) and make_window ({len(WINDOW_KINDS)} kinds, n 1/2/33/64/4096) equal the CPU's "
+          f"bit for bit")
 
 
 def noisy_branch_metrics(lanes: int, steps: int, constraint: int, seed: int, polys=None):
@@ -571,19 +748,20 @@ def main() -> None:
         phase("2 build", f"{path.name}; ptxas: {'; '.join(usage) or 'already built'}")
     phase("2 build", f"{len(built)} libraries in {time.perf_counter() - t0:.2f} s")
     # A register array indexed by a value the compiler cannot fold goes to
-    # local memory; the traceback's step must not touch it.
+    # local memory; the traceback's step and the FIR's register window must
+    # not touch it.
     for name, (path, _) in built.items():
         ops = local_memory_ops(path)
         used = {k: v for k, v in ops.items() if v}
         phase("2 sass", f"{path.name}: {len(ops)} kernels; LDL/STL instructions: "
               f"{json.dumps(used) if used else 'none'}")
-        if name == "viterbi":
-            traceback = {k: v for k, v in ops.items() if "viterbi_traceback_kernel" in k}
-            if len(traceback) != TRACEBACK_INSTANCES or any(traceback.values()):
-                raise AssertionError(f"want {TRACEBACK_INSTANCES} traceback kernels with no "
-                                     f"LDL/STL in the SASS, got {traceback}")
-            phase("2 sass", f"viterbi_traceback_kernel: {len(traceback)} instances, "
-                  "no LDL/STL in any")
+        if name in SASS_GUARDS:
+            kernel, instances = SASS_GUARDS[name]
+            found = {k: v for k, v in ops.items() if kernel in k}
+            if len(found) != instances or any(found.values()):
+                raise AssertionError(f"want {instances} {kernel} instances with no LDL/STL in "
+                                     f"the SASS, got {found}")
+            phase("2 sass", f"{kernel}: {len(found)} instances, no LDL/STL in any")
 
     # 3. Kernel against the plain version: SF5-SF12, then the sweep's shapes.
     worst_rel = 0.0
@@ -737,6 +915,8 @@ def main() -> None:
                              f"{nco_launches} times")
     phase("15 launches", f"fir_decimate kernel launched {fir_launches} times, nco_mix "
           f"{nco_launches} times in phase 14")
+
+    check_card_against_cpu(dev)
 
     def dechirp_bound(t):  # complex64 rows in, float32 power out; FFT flops
         k = t["k"]

@@ -11,7 +11,9 @@ through `kernels.viterbi` (the Hopper kernels on a CUDA tensor, their
 plain PyTorch versions on a CPU tensor), and slices off the flush bits.
 Branch metrics are FP32 elementwise products summed in generator order,
 never a matmul: with ±1 expected values the products and, at R = 2, the
-single add are exact, so the metrics equal the reference's bit for bit.
+single add are exact, so the metrics equal the reference's bit for bit; at
+R = 3 the two adds round as the reference's einsum does (the K = 7 rate-1/3
+code's metrics and decodes are held against it bit for bit).
 Functions follow the device of a tensor input; other inputs (numpy
 arrays, lists) are put on the CUDA card.
 """

@@ -8,12 +8,15 @@ complex signals are filtered in one pass (real taps on both parts).
 
 Every FIR runs through one kernel, `kernels.fir.fir_decimate_dispatch`
 (the plain version on a CPU tensor, the Hopper kernel on a CUDA tensor),
-as a correlation of ``cat(state, x)`` with the reversed taps:
-``fir_decimate(cat(state, x), taps[::-1], f) == fir_filter(taps, x,
+as a correlation of the stream state ‖ x with the reversed taps:
+``fir_decimate(x, taps[::-1], f, state) == fir_filter(taps, x,
 state)[0][..., ::f]``, so a decimating FIR computes only the outputs it
-keeps. The dense FIR is the same call at f = 1; no convolution, and so no
-cuDNN TF32, is on the path. The oscillator of `freq_xlating_fir` is
-`kernels.nco.nco_mix_dispatch`.
+keeps. The kernel reads the state beside the block, so on the card no
+filter concatenates them, and a missing state is read as zeros, never
+allocated. The new state, the last K-1 samples of state ‖ x, is a copy of
+x's tail (`_next_state`). The dense FIR is the same call at f = 1; no
+convolution, and so no cuDNN TF32, is on the path. The oscillator of
+`freq_xlating_fir` is `kernels.nco.nco_mix_dispatch`.
 
 The design functions are numpy copies of the reference's and return the
 same float32 (or float64) arrays bit for bit. IIR, single-pole, DC
@@ -44,22 +47,24 @@ def _taps(taps, like: torch.Tensor) -> torch.Tensor:
     return to_tensor(taps, REAL_DTYPE, device=like.device)
 
 
-def _conv_valid(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """'valid' convolution tail of (..., N) with taps (K,): out (..., N-K+1),
-    out[i] = Σ_j taps[j]·x[i + K-1-j], real or complex."""
-    return fir_decimate_dispatch(x, taps.flip(0), 1)
-
-
-def _with_state(taps: torch.Tensor, x: torch.Tensor, state) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cat(state, x), new state): the stream extended by the last K-1 samples."""
-    k = taps.shape[0]
+def _next_state(state, x: torch.Tensor, k: int) -> torch.Tensor:
+    """The last K-1 samples of state ‖ x, zeros for a missing state: a copy of
+    x's tail when N >= K-1, so that a caller who refills x's buffer leaves
+    the state alone; a small concatenation when N < K-1."""
+    keep, n = k - 1, x.shape[-1]
+    if n >= keep:
+        return x[..., n - keep:].clone(memory_format=torch.contiguous_format)
     if state is None:
-        state = torch.zeros(x.shape[:-1] + (k - 1,), dtype=x.dtype, device=x.device)
-    else:
+        state = x.new_zeros(x.shape[:-1] + (keep,))
+    return torch.cat([state[..., n:], x], dim=-1)
+
+
+def _fir(taps: torch.Tensor, x: torch.Tensor, factor: int, state):
+    """(every factor-th output of the FIR over state ‖ x, new state)."""
+    if state is not None:
         state = to_tensor(state, x.dtype, device=x.device)
-    ext = torch.cat([state, x], dim=-1)
-    new_state = ext[..., ext.shape[-1] - (k - 1):] if k > 1 else state
-    return ext, new_state
+    y = fir_decimate_dispatch(x, taps.flip(0), factor, state, zero_state=state is None)
+    return y, _next_state(state, x, taps.shape[0])
 
 
 def fir_filter(taps, x, state=None):
@@ -69,9 +74,7 @@ def fir_filter(taps, x, state=None):
     Returns (y same length as x, new state). Complex-safe.
     """
     x = _signal(x)
-    taps = _taps(taps, x)
-    ext, new_state = _with_state(taps, x, state)
-    return _conv_valid(ext, taps), new_state
+    return _fir(_taps(taps, x), x, 1, state)
 
 
 def fir_apply(taps, x):
@@ -84,9 +87,7 @@ def decimating_fir(taps, x, factor: int, state=None):
     """FIR + keep every factor-th output (decimating_fir.rs), computing
     only the kept outputs. Returns (y, new state)."""
     x = _signal(x)
-    taps = _taps(taps, x)
-    ext, new_state = _with_state(taps, x, state)
-    return fir_decimate_dispatch(ext, taps.flip(0), factor), new_state
+    return _fir(_taps(taps, x), x, factor, state)
 
 
 def _zero_stuff(x: torch.Tensor, factor: int) -> torch.Tensor:

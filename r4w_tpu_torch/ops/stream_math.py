@@ -4,7 +4,8 @@ PyTorch counterpart of two blocks of ``r4w_tpu.ops.stream_math``
 (digital_down_converter.rs, vco.rs); the rest of that module is not ported
 yet. The down-converter's mix runs through `kernels.nco.nco_mix_dispatch`
 and its lowpass through `filters.decimating_fir`, so on a CUDA tensor the
-path is two Hopper kernels and a concatenation.
+path is two Hopper kernels (the FIR reads a zero state without allocating
+one) and a copy of the new state's K-1 samples.
 """
 
 from __future__ import annotations
@@ -35,8 +36,11 @@ def digital_down_convert(x, center_hz: float, sample_rate: float,
     (digital_down_converter.rs). Default taps:
     ``design_lowpass(63, sample_rate / (2.5·decimation), sample_rate)``."""
     x = to_tensor(x, IQ_DTYPE)
-    base = nco_mix_dispatch(x, -center_hz, sample_rate)
     if taps is None:
         taps = design_lowpass(63, sample_rate / (2.5 * decimation), sample_rate)
+    # before the mix: a copy from pageable host memory waits for the stream,
+    # which would hold the FIR's launch until the mix is done
+    taps = to_tensor(taps, REAL_DTYPE, device=x.device)
+    base = nco_mix_dispatch(x, -center_hz, sample_rate)
     y, _ = decimating_fir(taps, base, decimation)
     return y

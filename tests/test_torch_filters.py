@@ -105,6 +105,68 @@ def test_decimating_fir_is_fir_filter_kept_every_factor(factor, complex_):
     assert torch.equal(kept_state, dense_state)
 
 
+@pytest.mark.parametrize("block", [10, 64])
+def test_fir_filter_in_short_blocks_matches_reference_one_shot(block):
+    """Blocks shorter than K-1 (the new state is then partly the old one) and
+    longer, the state carried from none: the outputs equal JAX's one shot
+    and the last state equals JAX's."""
+    rng = np.random.default_rng(block)
+    taps = rng.standard_normal(31).astype(np.float32)
+    x = _signal(rng, (2, 6 * block))
+    want, want_state = ref_filters.fir_filter(taps, jnp.asarray(x))
+    parts, state = [], None
+    for chunk in np.split(x, 6, axis=-1):
+        y, state = filters.fir_filter(taps, _t(chunk), state)
+        parts.append(y)
+    assert _rel(torch.cat(parts, dim=-1), want) < FIR_TOL
+    np.testing.assert_array_equal(state.numpy(), np.asarray(want_state))
+
+
+@pytest.mark.parametrize("n", [100, 10])
+def test_new_state_is_a_copy_of_the_block(n):
+    """Refilling the block's buffer after the call leaves the state alone."""
+    rng = np.random.default_rng(n)
+    taps = rng.standard_normal(15).astype(np.float32)
+    x, state = _t(_signal(rng, (2, n))), _t(_signal(rng, (2, 14)))
+    want = torch.cat([state, x], dim=-1)[..., -14:].clone()
+    for fn in (lambda: filters.fir_filter(taps, x, state),
+               lambda: filters.decimating_fir(taps, x, 4, state)):
+        _, new_state = fn()
+        assert new_state.is_contiguous()
+        assert new_state.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+        saved = x.clone()
+        x.fill_(7.0)
+        assert torch.equal(new_state, want)
+        x.copy_(saved)
+
+
+def test_filters_hand_the_state_to_the_kernel_and_never_concatenate(monkeypatch):
+    """fir_filter and decimating_fir pass x itself and the state (or
+    zero_state, nothing allocated) to the dispatcher: no concatenation and
+    no zero fill around the kernel when N >= K-1."""
+    calls = []
+
+    def dispatch(x, taps, factor=1, state=None, *, zero_state=False):
+        calls.append((x, state, zero_state, factor))
+        return x[..., ::factor]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the filter concatenated or filled around the kernel")
+
+    rng = np.random.default_rng(3)
+    taps = rng.standard_normal(9).astype(np.float32)
+    x, state = _t(_signal(rng, (2, 50))), _t(_signal(rng, (2, 8)))
+    monkeypatch.setattr(filters, "fir_decimate_dispatch", dispatch)
+    monkeypatch.setattr(torch, "cat", refuse)
+    monkeypatch.setattr(torch, "zeros", refuse)
+    monkeypatch.setattr(torch.Tensor, "new_zeros", refuse)
+    filters.fir_filter(taps, x)
+    filters.decimating_fir(taps, x, 4, state)
+    (x1, s1, z1, f1), (x2, s2, z2, f2) = calls
+    assert x1 is x and s1 is None and z1 and f1 == 1
+    assert x2 is x and s2 is state and not z2 and f2 == 4
+
+
 def test_interpolating_fir_and_moving_filters_match_reference():
     rng = np.random.default_rng(30)
     taps = ref_filters.design_lowpass(25, 0.1, 1.0)
@@ -326,6 +388,28 @@ def test_ddc_bench_checks_at_a_small_size():
         entry.ddc_check(0.5 * y)
     with pytest.raises(ValueError, match="CUDA"):
         entry.ddc_bench("cpu")
+
+
+@pytest.mark.cuda
+def test_ddc_on_card_launches_no_concatenation_and_no_fill():
+    """The DDC on the card: the NCO and FIR kernels, the state's copy, and no
+    concatenation or zero-fill kernel (the profiler's device events)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    x = entry.ddc_signal("cuda", seed=1, streams=2, samples=1 << 15)
+    stream_math.digital_down_convert(x, entry.DDC_CENTER_HZ, entry.DDC_RATE_HZ,
+                                     entry.DDC_DECIMATION)  # warm-up: loads the kernels
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        y = stream_math.digital_down_convert(x, entry.DDC_CENTER_HZ, entry.DDC_RATE_HZ,
+                                             entry.DDC_DECIMATION)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("fir_decimate_kernel" in n for n in names)
+    assert any("nco_mix" in n for n in names)
+    assert not [n for n in names if "cat" in n.lower() or "fill" in n.lower()], names
+    entry.ddc_check(y)
 
 
 # ------------------------------------------- numpy inputs go to the device
