@@ -11,12 +11,18 @@ kernel), the K=7 soft Viterbi decode (the full-size decode bench and
 MIL-STD-188-110 round trips with autobaud; forward-ACS and traceback
 kernels) and the digital down-converter (the full-size DDC bench, a
 DUC -> DDC round trip, a streamed frequency-translating FIR and a
-rational resampler; FIR-decimate and NCO kernels). A last phase holds the
+rational resampler; FIR-decimate and NCO kernels). Phase 16 holds the
 card's results of functions no path runs (the FIR family's other users,
-vco, puncturing, windows) against the port's own CPU results. Each phase
-prints at least one line; a failed phase raises, and the exit code is then
-non-zero. The second-to-last line is the kernel table as JSON, the last
-line the device record.
+vco, puncturing, windows) against the port's own CPU results. Then the GPS
+L1 C/A receiver, a path with no hand-written kernel: phase 17 runs
+``gps_pvt_fix()`` at the full size of the JAX package's gate (six
+satellites, 24.3 s at 4.092 MS/s on the card) and fails unless the gate
+passes; phase 18 holds the card's PCPS grid, acquisition, tracking,
+scenario composite and code-phase fix against the port's CPU results;
+phase 19 times ``pcps_bench()`` and the three GNSS paths per call beside
+their launch counts. Each phase prints at least one line; a failed phase
+raises, and the exit code is then non-zero. The second-to-last line is the
+kernel table as JSON, the last line the device record.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
@@ -32,6 +38,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,13 +46,18 @@ from r4w_tpu_torch import create_waveform
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import windows
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
-                                 DDC_STREAMS, SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB,
-                                 VITERBI_INFO_BITS, VITERBI_LANES, ddc_bench, ddc_signal, entry,
-                                 lora_sweep, sweep_lanes, viterbi_bench)
+                                 DDC_STREAMS, PCPS_CONFIG, PCPS_RATE_HZ, SWEEP_PAYLOAD_BYTES,
+                                 SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_bench,
+                                 ddc_signal, entry, gps_pvt_fix, lora_sweep, pcps_bench,
+                                 pcps_inputs, sweep_lanes, viterbi_bench)
 from r4w_tpu_torch.fec import convolutional
+from r4w_tpu_torch.gnss import acquisition, scenario, tracking
+from r4w_tpu_torch.gnss import gps_pvt_fix as gps
+from r4w_tpu_torch.gnss import prn as gnss_prn
 from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
 from r4w_tpu_torch.ops import filters, filters2, resample, stream_math
+from r4w_tpu_torch.profiling import breakdown
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora import chirp
 
@@ -100,6 +112,20 @@ WINDOW_KINDS = ("rect", "hann", "hamming", "blackman", "blackmanharris", "bartle
                 "kaiser", "gaussian")
 ROUND_TRIP_TONE_HZ = 120e3
 XLATING_BLOCKS = 4
+# GNSS: the gate (tools/gps_pvt_fix.py's) and the tolerances of the CPU tests
+GPS_MAX_ERROR_M, GPS_MAX_SPEED_MPS = 50.0, 1.0
+PVT_TOL_M = 0.01                      # code-phase fix, card vs CPU on one capture
+TRACK_FS, TRACK_BLOCKS, TRACK_CN0_DBHZ = 2.046e6, 300, 48.0
+# PRN, Doppler Hz, code phase at sample 0 (chips), as tests/test_torch_gnss_tracking.py
+TRACK_CHANNELS = ((7, 800.0, 0.3), (12, -1500.0, 0.6), (21, 2400.0, 0.5))
+TRACK_SEED_ERR_CHIPS, TRACK_SEED_ERR_HZ = 0.05, -10.0
+TRACK_TOLS = {"code_phase": 1e-3, "carrier_freq": 0.1, "dll_disc": 1e-3, "pll_disc": 1e-3,
+              "cn0_dbhz": 0.05}  # absolute; prompts and E/L within 1e-3 of max|prompt|
+PROMPT_REL_TOL = 1e-3
+COMPOSITE_TOL = 1e-5                  # max|Δ| / max|CPU|, tests/test_torch_gnss_scenario.py
+COMPOSITE_SAMPLES = 1 << 16
+GNSS_TIMED_BLOCKS = 1000              # tracking blocks in phase 19's per-step timing
+GNSS_BLOCK_SAMPLES = 1 << 22          # the capture's generate_device block
 
 
 def phase(name: str, message: str) -> None:
@@ -725,6 +751,214 @@ def check_viterbi_kernels() -> dict:
     return table
 
 
+def drive_gps_path(dev: torch.device) -> dict:
+    """Phase 17: the GPS L1 C/A receiver at the JAX package's gate size
+    through `entry.gps_pvt_fix`; fails unless every SV is acquired and
+    decoded with consistent IODE/IODC, the fix is within 50 m and the
+    solved speed of the static receiver under 1 m/s."""
+    out = gps_pvt_fix(dev)
+    speed = (out["velocity"] or {}).get("speed_mps", math.inf)
+    rr = {r["prn"]: r.get("rr_err_mps") for r in out["per_sv"]}
+    phase("17 gps pvt fix", f"{out['of']} SVs, 24.3 s at {gps.FS_DEC / 1e6} MS/s on {out['device']}: "
+          f"gen_s {out['gen_s']:.6f}, acquire_s {out['acquire_s']:.6f}, track_s "
+          f"{out['track_s']:.6f}; error {out['value']:.6f} m, acquired {out['acquired']}/{out['of']}, "
+          f"decoded {out['decoded']}/{out['of']}, speed {speed:.6f} m/s, clock bias "
+          f"{out['clock_bias_m']:.3f} m, max residual {out['max_residual_m']:.3f} m, C/N0 estimate "
+          f"{out['cn0_est_dbhz']:.2f} dB-Hz; range-rate errors m/s {json.dumps(rr)}")
+    iode = all(r.get("iode_ok") for r in out["per_sv"])
+    if not (out["pass"] and out["acquired"] == out["decoded"] == out["of"] == 6 and iode
+            and out["value"] < GPS_MAX_ERROR_M and speed < GPS_MAX_SPEED_MPS):
+        raise AssertionError(f"the GPS gate failed: {json.dumps(out)}")
+    return out
+
+
+def tracking_inputs():
+    """Phase 18's three C/A channels (tests/test_torch_gnss_tracking.py):
+    2.046 MS/s, 20 ms bits on code epochs, numpy noise at 48 dB-Hz; seeds
+    0.05 chips and 10 Hz off the truth. Returns (x, codes, phase0, dop0)."""
+    rng = np.random.default_rng(0)
+    n = TRACK_BLOCKS * int(TRACK_FS / 1000)
+    t = np.arange(n) / TRACK_FS
+    rows = []
+    for prn_id, dop, chip0 in TRACK_CHANNELS:
+        code = gnss_prn.gps_ca_code(prn_id).astype(np.float64)
+        bits = 1 - 2 * rng.integers(0, 2, n // int(TRACK_FS * 0.02) + 2)
+        epoch = np.floor(chip0 + t * 1.023e6 * (1 + dop / 1.57542e9)).astype(np.int64)
+        sig = code[epoch % 1023] * bits[epoch // (1023 * 20)] * np.exp(2j * np.pi * (dop * t + 0.1))
+        std = np.sqrt(TRACK_FS / 10 ** (TRACK_CN0_DBHZ / 10) / 2)
+        rows.append(sig + std * (rng.standard_normal(n) + 1j * rng.standard_normal(n)))
+    codes = np.stack([gnss_prn.gps_ca_code(p) for p, _, _ in TRACK_CHANNELS]).astype(np.float32)
+    phase0 = np.array([c + TRACK_SEED_ERR_CHIPS for _, _, c in TRACK_CHANNELS], np.float32)
+    dop0 = np.array([d + TRACK_SEED_ERR_HZ for _, d, _ in TRACK_CHANNELS], np.float32)
+    return np.stack(rows).astype(np.complex64), codes, phase0, dop0
+
+
+def composite_config() -> scenario.ScenarioConfig:
+    """GPS with LNAV-like bits, GLONASS FDMA and Galileo E1C under the
+    suburban multipath preset at 6.132 MS/s: every overlay, the integer
+    FDMA phase and delayed taps in one block."""
+    sat = scenario.SatelliteConfig
+    sats = (sat(signal="GpsL1Ca", prn=7, cn0_dbhz=50.0, doppler_hz=1200.0, nav_data=True,
+                nav_bits=tuple(int(b) for b in 1 - 2 * (np.arange(40) % 3 == 0))),
+            sat(signal="GlonassL1of", prn=1, cn0_dbhz=48.0, doppler_hz=-900.0,
+                carrier_offset_hz=-7 * 562_500.0),
+            sat(signal="GalileoE1C", prn=5, cn0_dbhz=47.0, doppler_hz=2100.0, range_m=2.4e7,
+                elevation_deg=15.0))
+    return scenario.ScenarioConfig(satellites=sats, sample_rate=6.132e6, seed=18,
+                                   environment=scenario.EnvironmentConfig(
+                                       multipath_preset="Suburban", multipath_enabled=True))
+
+
+def check_gnss_card_against_cpu(dev: torch.device) -> None:
+    """Phase 18: the GNSS functions on the card against the port's CPU
+    results on the same inputs: the PCPS grid at the bench shape within
+    1e-4 of its peak; acquisition decisions identical and metrics within
+    rtol 1e-4; 300 tracking blocks of three channels within the tracking
+    tolerances; the scenario composite with zero noise within 1e-5 of its
+    peak; the code-phase fix on one capture with identical acquisitions and
+    errors within 0.01 m."""
+    x, codes = pcps_inputs("cpu")
+    want = acquisition.pcps_grid(x, codes, PCPS_RATE_HZ, PCPS_CONFIG)
+    got = acquisition.pcps_grid(x.to(dev), codes.to(dev), PCPS_RATE_HZ, PCPS_CONFIG)
+    _, rel = rel_err(got.cpu(), want)
+    if not (got.device.type == dev.type and rel <= REL_TOL):
+        raise AssertionError(f"pcps_grid card vs CPU: max|Δ|/max {rel:.3g} on {got.device}")
+    phase("18 gnss card vs cpu", f"pcps_grid {tuple(got.shape)}: max|Δ|/max(CPU) {rel:.3g} "
+          f"<= {REL_TOL}")
+
+    cfg, _, _ = gps.code_phase_scenario()
+    iq = scenario.GnssScenario(cfg, device="cpu").generate()
+    prns = [s.prn for s in cfg.satellites]
+    bank = torch.from_numpy(np.repeat(gps.ca_codes(prns), 8, axis=1))
+    res = {str(d): acquisition.acquire(torch.from_numpy(iq).to(d), bank.to(d), prns, gps.FS,
+                                       gps.ACQ_CONFIG) for d in ("cpu", dev)}
+    card, cpu = res[str(dev)], res["cpu"]
+    for name in ("detected", "code_phase", "doppler_hz"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"acquire {name}: card {getattr(card, name).tolist()}, CPU "
+                                 f"{getattr(cpu, name).tolist()}")
+    metric_rel = float(((card.peak_metric.cpu() - cpu.peak_metric).abs() / cpu.peak_metric).max())
+    if not metric_rel <= REL_TOL:
+        raise AssertionError(f"acquire peak metric card vs CPU: rtol {metric_rel:.3g}")
+    fixes = {str(d): gps.main_code_phase(device=d, iq=iq) for d in ("cpu", dev)}
+    fc, fp = fixes[str(dev)], fixes["cpu"]
+    if not (fc["code_phase"] == fp["code_phase"] and fc["doppler_hz"] == fp["doppler_hz"]
+            and abs(fc["value"] - fp["value"]) <= PVT_TOL_M and fc["pass"]):
+        raise AssertionError(f"main_code_phase card vs CPU: {fc} vs {fp}")
+    phase("18 gnss card vs cpu", f"acquire on the code-phase gate's capture: detected, code phase "
+          f"and Doppler equal, peak metric rtol {metric_rel:.3g}; main_code_phase error "
+          f"{fc['value']:.6f} m on the card, {fp['value']:.6f} m on the CPU (within {PVT_TOL_M} m)")
+
+    xs, tcodes, phase0, dop0 = tracking_inputs()
+    tcfg = tracking.TrackingConfig(sample_rate=TRACK_FS)
+    outs = {}
+    for d in ("cpu", dev):
+        st = tracking.init_state(tcfg, phase0, dop0, device=d)
+        outs[str(d)] = tracking.track(tcfg, st, torch.from_numpy(xs).to(d),
+                                      torch.from_numpy(tcodes).to(d))[1]
+    card = {k: v.cpu() for k, v in outs[str(dev)]._asdict().items()}
+    cpu = outs["cpu"]._asdict()
+    scale = torch.abs(torch.complex(cpu["prompt_i"], cpu["prompt_q"])).amax(-1, keepdim=True)
+    worst = {}
+    for name in ("prompt_i", "prompt_q", "early_mag", "late_mag"):
+        worst[name] = float(((card[name] - cpu[name]).abs() / scale).max())
+        if not worst[name] <= PROMPT_REL_TOL:
+            raise AssertionError(f"track {name} card vs CPU: {worst[name]:.3g} of max|prompt|")
+    for name, tol in TRACK_TOLS.items():
+        worst[name] = float((card[name] - cpu[name]).abs().max())
+        if not worst[name] <= tol:
+            raise AssertionError(f"track {name} card vs CPU: max|Δ| {worst[name]:.3g} > {tol}")
+    if not torch.equal(tracking.extract_nav_bits(card["prompt_i"]),
+                       tracking.extract_nav_bits(cpu["prompt_i"])):
+        raise AssertionError("track: nav bits differ between the card and the CPU")
+    phase("18 gnss card vs cpu", f"track, 3 channels × {TRACK_BLOCKS} blocks at "
+          f"{TRACK_FS / 1e6} MS/s: worst {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}"
+          f" (prompts as a share of max|prompt|), nav bits equal")
+
+    comp = {}
+    for d in ("cpu", dev):
+        sc = scenario.GnssScenario(composite_config(), device=d)
+        sc.generate_block(COMPOSITE_SAMPLES)  # one block in: carried phase, n0, Doppler
+        inputs, _ = sc.block_inputs(COMPOSITE_SAMPLES)
+        comp[str(d)] = scenario.composite_block(*sc.sv_banks(), *inputs, 0.0,
+                                                n=COMPOSITE_SAMPLES, fs=sc.config.sample_rate,
+                                                fdma_den=sc._fdma_den)
+    card, cpu = comp[str(dev)].cpu(), comp["cpu"]
+    err = (card - cpu).abs()
+    over = int((err > COMPOSITE_TOL * cpu.abs().max()).sum())
+    _, rel = rel_err(card, cpu)
+    if not (comp[str(dev)].device.type == dev.type and over == 0):
+        raise AssertionError(f"composite_block card vs CPU: {over} samples beyond "
+                             f"{COMPOSITE_TOL} of the peak, max|Δ|/max {rel:.3g}")
+    phase("18 gnss card vs cpu", f"composite_block, GPS + GLONASS FDMA + Galileo E1C under "
+          f"suburban multipath, {COMPOSITE_SAMPLES} samples at 6.132 MS/s, zero noise: max|Δ|/max "
+          f"{rel:.3g} <= {COMPOSITE_TOL}, 0 samples beyond it")
+
+
+def time_gnss_paths(dev: torch.device) -> None:
+    """Phase 19: `pcps_bench()` in Mcorr/s, and the three GNSS paths with no
+    hand-written kernel (the PCPS grid at the bench shape, one tracking
+    step of six channels at 4.092 MS/s, one composite block of the gate's
+    capture) in ms per call beside their device launches and busy time per
+    call (a tracking step's ms is host time per block over 1000 blocks,
+    where the host sets the pace); the grid beside its bound (bytes: x,
+    codes and the grid once; operations: the mixes, the FFTs at
+    5·N·log2 N, the products and |·|²)."""
+    bench = pcps_bench(dev)
+    phase("19 pcps bench", f"{bench['shape']} (PRNs × Doppler bins × phases), 2 periods: "
+          f"{bench['mcorr_per_s']:.3f} Mcorr/s, {bench['ms_per_call']:.6f} ms per call (mean of "
+          f"{bench['calls']} chained calls)")
+    x, codes = pcps_inputs(dev)
+    p, l = codes.shape
+    d = len(acquisition.doppler_bins(PCPS_CONFIG))
+    k = PCPS_CONFIG.coherent_periods
+    fft = 5.0 * l * math.log2(l)
+    b_ms, b_by = bound(8 * k * l + 4 * p * l + 4 * p * d * l,
+                       k * (6 * d * l + d * fft + 6 * p * d * l + p * d * fft + 4 * p * d * l)
+                       + p * fft)
+    rows = {"pcps_grid": (lambda: acquisition.pcps_grid(x, codes, PCPS_RATE_HZ, PCPS_CONFIG), 1)}
+
+    big = scenario.GnssScenario(gps.decoded_scenario()[0], device=dev)
+    inputs, _ = big.block_inputs(GNSS_BLOCK_SAMPLES)
+    rows["composite_block"] = (lambda: scenario.composite_block(
+        *big.sv_banks(), *inputs, big._noise_std, torch.Generator(device=dev).manual_seed(19),
+        n=GNSS_BLOCK_SAMPLES, fs=gps.FS_DEC), 1)
+    table = {}
+    for name, (fn, per) in rows.items():
+        prof = breakdown(fn)
+        table[name] = {"ms_per_call": cuda_ms(fn, 3) / per,
+                       "launches_per_call": prof["device_events"] / per,
+                       "busy_ms_per_call": prof["busy_ms"] / per, "idle_share": prof["idle_share"]}
+
+    # One tracking step: six channels of the gate's capture at 4.092 MS/s.
+    # Launches and busy time per block from the difference of a 20- and a
+    # 10-block call (the set-up cancels); host time per block over 1000.
+    full = big.generate_device()
+    tcfg = tracking.TrackingConfig(sample_rate=gps.FS_DEC, costas=True, fll_gain=0.2)
+    bs, n_ch = tcfg.block_size, len(big.satellites)
+    st = tracking.init_state(tcfg, np.zeros(n_ch, np.float32), np.zeros(n_ch, np.float32),
+                             device=dev)
+    ca = torch.from_numpy(gps.ca_codes([s.prn for s in big.satellites])).to(dev)
+    start = np.arange(n_ch) * 617
+
+    def run(blocks):
+        _, out = tracking.track(tcfg, st, full[: (blocks + 1) * bs], ca, start=start)
+        return out.prompt_i
+
+    few = [breakdown(lambda b=b: run(b)) for b in (10, 20)]
+    run(GNSS_TIMED_BLOCKS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(GNSS_TIMED_BLOCKS).cpu()
+    table["tracking step"] = {
+        "ms_per_call": (time.perf_counter() - t0) * 1e3 / GNSS_TIMED_BLOCKS,
+        "launches_per_call": (few[1]["device_events"] - few[0]["device_events"]) / 10,
+        "busy_ms_per_call": (few[1]["busy_ms"] - few[0]["busy_ms"]) / 10, "shape": [n_ch, bs]}
+    table["pcps_grid"].update({"bound_ms": b_ms, "bound_by": b_by, "shape": [p, d, l, k]})
+    table["composite_block"]["shape"] = [n_ch, GNSS_BLOCK_SAMPLES]
+    phase("19 gnss paths", json.dumps(table))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -917,6 +1151,21 @@ def main() -> None:
           f"{nco_launches} times in phase 14")
 
     check_card_against_cpu(dev)
+
+    # The GPS receiver starts here. Its path has no hand-written kernel (its
+    # grid, tracking loop and composite are torch operations); the counts
+    # must stay at zero through it.
+    zero_launch_counts()
+    drive_gps_path(dev)
+    counts = {"dechirp_power": dechirp_power.launches, "fir_decimate": fir.fir_decimate.launches,
+              "nco_mix": nco.nco_mix.launches,
+              "viterbi_forward": viterbi.viterbi_forward.launches,
+              "viterbi_traceback": viterbi.viterbi_traceback.launches}
+    if any(counts.values()):
+        raise AssertionError(f"the GPS path launched a hand-written kernel: {counts}")
+    phase("17 launches", f"the GPS path launched no hand-written kernel: {json.dumps(counts)}")
+    check_gnss_card_against_cpu(dev)
+    time_gnss_paths(dev)
 
     def dechirp_bound(t):  # complex64 rows in, float32 power out; FFT flops
         k = t["k"]

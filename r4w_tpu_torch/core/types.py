@@ -47,6 +47,20 @@ def to_tensor(x, dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
 
 
+def real_scalar(value: float, device) -> torch.Tensor:
+    """`value` as a 0-dim float32 tensor filled on `device`.
+
+    Use it as a divisor where the result must be the float32 quotient that
+    the reference computes: in torch a Python number over a tensor is the
+    tensor's reciprocal times the number, and a CUDA tensor over a Python
+    number is the tensor times the number's reciprocal, each an ulp off in
+    some elements; a tensor over a tensor divides on every device. Filling
+    on the device avoids a copy from host memory, which waits for the
+    stream.
+    """
+    return torch.full((), value, dtype=REAL_DTYPE, device=device)
+
+
 class DspError(Exception):
     """Base error for DSP parameter/shape problems."""
 

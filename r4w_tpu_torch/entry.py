@@ -9,8 +9,12 @@ counterpart of ``bench.py``'s ``bench_viterbi``: a K=7 rate-1/2 soft
 decode of 4096 frames of 2048 bits, timed the same way. `ddc_bench(device,
 seed)` is the digital down-converter at a capture size users run: 64
 streams of 2^20 samples at an LTE-20 rate, mixed, lowpassed and decimated
-by 8. Every entry point runs on the CUDA card unless the caller names
-another device.
+by 8. `gps_pvt_fix(device)` is the counterpart of ``bench.py``'s
+``bench_gps_pvt_fix``: the GPS L1 C/A receiver from a 24.3 s six-satellite
+capture to a position fix. `pcps_bench(device)` is the counterpart of
+``bench.py``'s ``bench_pcps``: the PCPS correlation grid of 8 PRNs × 41
+Doppler bins × 2046 code phases, in correlations per second. Every entry
+point runs on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.gnss import acquisition, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.parallel import ber_sweep
 from r4w_tpu_torch.waveforms import lora
@@ -41,6 +46,10 @@ DDC_NOISE_STD = 0.1                            # per component
 DDC_EDGE = 64                                  # output samples skipped at each end
 DDC_AMPLITUDE_TOL = 0.02
 DDC_REJECTION_DB = 50.0
+PCPS_PRNS, PCPS_RATE_HZ = 8, 2_046_000.0       # 8 C/A codes at 2 samples a chip
+PCPS_CONFIG = acquisition.PcpsConfig(doppler_max_hz=5000.0, doppler_step_hz=250.0,
+                                     coherent_periods=2)
+PCPS_CALLS = 16                                # chained calls timed together
 
 
 def entry(device=DEFAULT_DEVICE):
@@ -226,3 +235,58 @@ def ddc_bench(device=DEFAULT_DEVICE, seed: int = 0) -> dict:
     return {"msps": x.numel() / compute_s / 1e6, "compute_s": compute_s, **checks,
             "streams": x.shape[0], "samples": x.shape[1], "decimation": DDC_DECIMATION,
             "out_samples": y.shape[-1]}
+
+
+def gps_pvt_fix(device=DEFAULT_DEVICE, duration_s: float = 24.3, cn0_dbhz: float = 48.0) -> dict:
+    """The GPS L1 C/A decoded-ephemeris gate on `device`.
+
+    Six satellites at `cn0_dbhz` with LNAV (SF4 filler, then SF1-3) at
+    4.092 MS/s for `duration_s`: scenario on the device, acquisition over a
+    12 ms slice, six tracking channels over the whole capture, LNAV decode
+    and the position and velocity solve on the host. Returns the receiver's
+    dict: ``value`` (position error, m), ``pass``, ``acquired``,
+    ``decoded``, ``velocity``, ``per_sv`` records, and ``gen_s``,
+    ``acquire_s`` and ``track_s``, wall times that each end in a device
+    synchronisation.
+    """
+    return gps.main_decoded(duration_s, cn0_dbhz, device=device)
+
+
+def pcps_inputs(device=DEFAULT_DEVICE, seed: int = 7):
+    """(x, codes) of `pcps_bench`: 4092 complex64 samples of unit-variance
+    noise per component from `np.random.default_rng(seed)` and the C/A codes
+    of PRN 1-8 at 2 samples a chip, (8, 2046) float32, on `device`."""
+    device = torch.device(device)
+    codes = np.stack([np.repeat(prn.gps_ca_code(p + 1), 2).astype(np.float32)
+                      for p in range(PCPS_PRNS)])
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(4092) + 1j * rng.standard_normal(4092)).astype(np.complex64)
+    return torch.from_numpy(x).to(device), torch.from_numpy(codes).to(device)
+
+
+def pcps_bench(device=DEFAULT_DEVICE, seed: int = 7) -> dict:
+    """PCPS correlator throughput through `acquisition.pcps_grid`.
+
+    8 PRNs × 41 Doppler bins (±5 kHz, 250 Hz steps) × 2046 code phases,
+    two code periods summed non-coherently. One warm-up call, then
+    `PCPS_CALLS` back-to-back calls timed with CUDA events. Returns
+    ``mcorr_per_s`` (PRNs × Doppler bins × phases per second, in
+    millions), ``ms_per_call`` and the grid's shape.
+    """
+    device = torch.device(device)
+    _require_cuda("pcps_bench", device)
+    x, codes = pcps_inputs(device, seed)
+    grid = acquisition.pcps_grid(x, codes, PCPS_RATE_HZ, PCPS_CONFIG)  # warm-up
+    if not bool(torch.isfinite(grid).all()):
+        raise AssertionError("pcps_bench: the grid is not finite")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PCPS_CALLS):
+        acquisition.pcps_grid(x, codes, PCPS_RATE_HZ, PCPS_CONFIG)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / PCPS_CALLS
+    cells = grid.numel()
+    return {"mcorr_per_s": cells / ms / 1e3, "ms_per_call": ms, "shape": list(grid.shape),
+            "calls": PCPS_CALLS}

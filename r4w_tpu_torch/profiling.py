@@ -10,9 +10,12 @@ device events, and device milliseconds per event name (cut to its first
 
 Cells: the LoRa Monte-Carlo sweep at SF7 and at SF12 (one ``ber_sweep``
 call at ``entry.lora_sweep``'s shape), the decode bench (one
-``viterbi_decode_mxu`` at ``entry.viterbi_bench``'s 4096 × 2048 shape)
-and the DDC bench (one ``digital_down_convert`` at ``entry.ddc_bench``'s
-64 × 2^20 shape).
+``viterbi_decode_mxu`` at ``entry.viterbi_bench``'s 4096 × 2048 shape),
+the DDC bench (one ``digital_down_convert`` at ``entry.ddc_bench``'s
+64 × 2^20 shape) and the GPS tracking cell (``gnss.gps_pvt_fix.l1ca_receiver``
+on 1.001 s of the decoded gate's six-satellite capture at 4.092 MS/s: one
+acquisition over 12 ms, then six channels × 1000 one-ms blocks; the
+capture is made on the card before the cell and is not in its time).
 It needs a CUDA card; it has no CPU path.
 """
 
@@ -32,12 +35,15 @@ from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, SWE
                                  SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_signal,
                                  sweep_lanes)
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.gnss import gps_pvt_fix as gps
+from r4w_tpu_torch.gnss.scenario import GnssScenario
 from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.parallel import ber_sweep
 from r4w_tpu_torch.waveforms import lora
 
 TOP_EVENTS = 8
 NAME_CHARS = 96  # device event names are cut to this length
+GPS_CELL_SECONDS = 1.001  # 1000 tracking blocks after the latest channel's window start
 
 
 def breakdown(fn) -> dict:
@@ -80,6 +86,10 @@ def cells(device: torch.device) -> dict:
     runs["viterbi_bench"] = functools.partial(viterbi_decode_mxu, soft, soft=True)
     runs["ddc_bench"] = functools.partial(digital_down_convert, ddc_signal(device), DDC_CENTER_HZ,
                                           DDC_RATE_HZ, DDC_DECIMATION)
+    cfg, _, _ = gps.decoded_scenario(GPS_CELL_SECONDS)
+    rx = GnssScenario(cfg, device=device).generate_device()
+    runs["gps_tracking"] = functools.partial(gps.l1ca_receiver, rx,
+                                             [s.prn for s in cfg.satellites])
     return runs
 
 

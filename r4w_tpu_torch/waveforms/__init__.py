@@ -1,7 +1,8 @@
 """Waveform package: registry-backed factory over the ported waveforms.
 
 Importing this package registers every ported waveform with the factory;
-so far that is the LoRa family and MIL-STD-188-110.
+so far that is the LoRa family, MIL-STD-188-110 and the GNSS signals
+(GPS L1 C/A and L5, GLONASS L1OF, Galileo E1).
 """
 
 from r4w_tpu_torch.waveforms.base import (
@@ -15,6 +16,7 @@ from r4w_tpu_torch.waveforms.base import (
 )
 from r4w_tpu_torch.waveforms import lora_waveform  # noqa: F401  registers LoRa
 from r4w_tpu_torch.waveforms import milstd188110  # noqa: F401  110A + autobaud
+from r4w_tpu_torch.waveforms import gnss_waveforms  # noqa: F401  GPS/GLONASS/Galileo
 
 __all__ = [
     "DemodResult",

@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``r4w_tpu.waveforms.base``. Waveforms are frozen
 dataclasses that hold the device their `modulate` creates tensors on;
-`demodulate` runs wherever its samples lie. Unknown names, and the
-``GPS-L1CA-PRN<n>`` names until the GNSS port lands, give None.
+`demodulate` runs wherever its samples lie. ``GPS-L1CA-PRN<n>`` names
+resolve for n = 1-32; unknown names give None.
 """
 
 from __future__ import annotations
@@ -155,10 +155,16 @@ def create_waveform(name: str, sample_rate: float = 125_000.0,
                     device=DEFAULT_DEVICE) -> Waveform | None:
     """Create a waveform by (aliased) name on `device` (the CUDA card
     unless named); None if the name is unknown."""
-    builder = _REGISTRY.get(_norm(name))
-    if builder is None:
-        return None
-    return builder(sample_rate, resolve_device(device))
+    key = _norm(name)
+    builder = _REGISTRY.get(key)
+    if builder is not None:
+        return builder(sample_rate, resolve_device(device))
+    # GPS-L1CA-PRN<n> dynamic names (mod.rs:591-597)
+    if key.startswith("GPSL1CAPRN") and key[10:].isdigit() and 1 <= int(key[10:]) <= 32:
+        from r4w_tpu_torch.waveforms.gnss_waveforms import GpsL1CaWaveform
+
+        return GpsL1CaWaveform(sample_rate, int(key[10:]), resolve_device(device))
+    return None
 
 
 class WaveformFactory:

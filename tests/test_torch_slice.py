@@ -24,8 +24,10 @@ from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import types
-from r4w_tpu_torch.entry import (ddc_bench, entry, lora_sweep, sweep_lanes, viterbi_bench,
-                                 waterfall_snr_db)
+from r4w_tpu_torch.entry import (ddc_bench, entry, gps_pvt_fix, lora_sweep, pcps_bench,
+                                 sweep_lanes, viterbi_bench, waterfall_snr_db)
+from r4w_tpu_torch.gnss import GnssScenario, init_state
+from r4w_tpu_torch.gnss.gps_pvt_fix import main_code_phase, main_decoded
 from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, monte_carlo_ber
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora_waveform import LoRaWaveform
@@ -68,13 +70,15 @@ def test_quick_start_roundtrip():
 
 
 def test_factory_names_aliases_and_unknowns():
-    assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12", "MIL-STD-188-110"]
+    assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12", "MIL-STD-188-110", "GPS-L1CA",
+                                "GPS-L5", "GLONASS-L1OF", "Galileo-E1"]
     assert WaveformFactory.list() == list_waveforms()
     assert WaveformFactory.create("css").params.sf == 7
     assert create_waveform("lora_sf12").params.sf == 12
     assert create_waveform("LoRa", device="cpu").device == torch.device("cpu")
     assert create_waveform("QPSK") is None
-    assert create_waveform("GPS-L1CA-PRN5") is None  # until the GNSS port lands
+    assert create_waveform("GPS-L1CA-PRN5", device="cpu").prn == 5
+    assert create_waveform("GPS-L1CA-PRN33") is None
 
 
 def test_waveform_educational_defaults():
@@ -138,8 +142,11 @@ def test_entry_points_default_to_the_card():
     """Read without a card: every entry point that creates tensors defaults
     to CUDA, and None resolves to it with no fallback to the CPU."""
     cuda = torch.device("cuda")
-    for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate):
+    for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate,
+               gps_pvt_fix, pcps_bench):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
+    for fn in (GnssScenario, init_state, main_decoded, main_code_phase):  # None: DEFAULT_DEVICE
+        assert inspect.signature(fn).parameters["device"].default is None, fn
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
     assert types.resolve_device(None) == cuda and types.resolve_device("cpu").type == "cpu"
@@ -154,6 +161,12 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.ops.filters, r4w_tpu_torch.ops.resample\n"
             "import r4w_tpu_torch.ops.stream_math, r4w_tpu_torch.ops.filters2\n"
             "import r4w_tpu_torch.kernels.fir, r4w_tpu_torch.kernels.nco, r4w_tpu_torch.core.windows\n"
+            "import r4w_tpu_torch.gnss, r4w_tpu_torch.gnss.gps_pvt_fix, r4w_tpu_torch.gnss.tracking\n"
+            "import r4w_tpu_torch.gnss.acquisition, r4w_tpu_torch.gnss.scenario\n"
+            "import r4w_tpu_torch.gnss.coordinates, r4w_tpu_torch.gnss.environment\n"
+            "import r4w_tpu_torch.gnss.prn, r4w_tpu_torch.gnss.boc, r4w_tpu_torch.gnss.ephemeris\n"
+            "import r4w_tpu_torch.gnss.nav_message, r4w_tpu_torch.gnss.pvt\n"
+            "import r4w_tpu_torch.waveforms.gnss_waveforms\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
             "print(bad)\n"
