@@ -19,10 +19,21 @@ L1 C/A receiver, a path with no hand-written kernel: phase 17 runs
 satellites, 24.3 s at 4.092 MS/s on the card) and fails unless the gate
 passes; phase 18 holds the card's PCPS grid, acquisition, tracking,
 scenario composite and code-phase fix against the port's CPU results;
-phase 19 times ``pcps_bench()`` and the three GNSS paths per call beside
-their launch counts. Each phase prints at least one line; a failed phase
-raises, and the exit code is then non-zero. The second-to-last line is the
-kernel table as JSON, the last line the device record.
+phase 19 times ``pcps_bench()`` and the GNSS paths per call beside
+their launch counts. Then the Galileo E1B receiver, the joint GPS + Galileo
+receiver and GLONASS L1OF FDMA tracking, each at its gate's full size with
+the counts set to 0 before it: phase 20 ``galileo_pvt()`` (six SVs, 11.2 s
+at 5.115 MS/s) and phase 21 ``dual_pvt()`` (5 + 5 SVs, 24.3 s at 5.115
+MS/s), whose I/NAV page parts go through both Viterbi kernels, one launch
+each per channel; phase 22 ``glonass_track()`` (six FDMA channels, 4 s at
+6.132 MS/s), which launches no hand-written kernel; phase 23 holds the
+Viterbi kernels at the I/NAV shape (T = 120, the gates' lane counts) bit
+for bit against their plain versions and times them, and holds the
+card's I/NAV decode, E1B acquisition and closed tracking and GLONASS
+mixdown against the port's CPU results. Each phase prints at least one
+line; a failed phase raises, and the exit code is then non-zero. The
+second-to-last line is the kernel table as JSON, the last line the device
+record.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
@@ -48,11 +59,16 @@ from r4w_tpu_torch.core import windows
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
                                  DDC_STREAMS, PCPS_CONFIG, PCPS_RATE_HZ, SWEEP_PAYLOAD_BYTES,
                                  SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_bench,
-                                 ddc_signal, entry, gps_pvt_fix, lora_sweep, pcps_bench,
-                                 pcps_inputs, sweep_lanes, viterbi_bench)
+                                 ddc_signal, dual_pvt, entry, galileo_pvt, glonass_track,
+                                 gps_pvt_fix, lora_sweep, pcps_bench, pcps_inputs, sweep_lanes,
+                                 viterbi_bench)
 from r4w_tpu_torch.fec import convolutional
-from r4w_tpu_torch.gnss import acquisition, scenario, tracking
+from r4w_tpu_torch.gnss import acquisition, inav, scenario, tracking
+from r4w_tpu_torch.gnss import dual_pvt as dual
+from r4w_tpu_torch.gnss import galileo_pvt as gal
+from r4w_tpu_torch.gnss import glonass_track as glo
 from r4w_tpu_torch.gnss import gps_pvt_fix as gps
+from r4w_tpu_torch.gnss.ephemeris import circular_ephemeris_for_position
 from r4w_tpu_torch.gnss import prn as gnss_prn
 from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
@@ -66,6 +82,7 @@ WATERFALL_BARS_DB = {"sf7": -8.0, "sf8": -12.0, "sf9": -14.0, "sf10": -16.0,
                      "sf11": -20.0, "sf12": -22.0}
 WATERFALL_SLACK_DB = 2.0  # one step of the sweep's SNR grid
 TIMED_LAUNCHES = 10
+SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock: the host enqueues behind it
 PLAIN_VITERBI_CALLS = 1  # the plain forward is a 2054-step loop of small launches
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +143,20 @@ COMPOSITE_TOL = 1e-5                  # max|Δ| / max|CPU|, tests/test_torch_gns
 COMPOSITE_SAMPLES = 1 << 16
 GNSS_TIMED_BLOCKS = 1000              # tracking blocks in phase 19's per-step timing
 GNSS_BLOCK_SAMPLES = 1 << 22          # the capture's generate_device block
+# Galileo E1B, the joint gate and GLONASS: the gates' bars (tools/galileo_pvt.py:330,
+# tools/dual_pvt.py:292, the GPS gate's speed bar; GLONASS's are in its verdicts)
+GAL_MAX_ERROR_M = 60.0
+DUAL_MAX_ERROR_M, DUAL_MAX_SPEED_MPS = 60.0, 1.0
+E1B_TIMED_BLOCKS = 250                # E1B tracking blocks in phase 19's per-step timing
+E1B_CHECK_BLOCKS = 300                # closed E1B blocks held card against CPU in phase 23
+E1B_CHECK_SECONDS = (E1B_CHECK_BLOCKS + 2) * 4092 / 1.023e6
+# absolute; prompts and E/L within PROMPT_REL_TOL of max|prompt|. The E1B code phase
+# is in subchips of a 49,104-subchip code, where a float32 block update steps by
+# 0.0039 (tests/test_torch_gnss_galileo.py)
+E1B_TRACK_TOLS = {"code_phase": 0.05, "carrier_freq": 0.1, "dll_disc": 1e-3, "pll_disc": 1e-3,
+                  "cn0_dbhz": 0.05}
+GLONASS_MIX_TOL = 1e-5                # max|card - CPU| / max|CPU|, float32 phase on both
+MIXDOWN_SAMPLES = 1 << 20
 
 
 def phase(name: str, message: str) -> None:
@@ -138,6 +169,23 @@ def cuda_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
+    """Mean device milliseconds of `fn` over `iters` calls enqueued while the
+    stream sleeps (`torch.cuda._sleep`), so that the kernels run back to back
+    whatever the host's launch rate; `fn` must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -621,6 +669,23 @@ def check_viterbi(bm: torch.Tensor, constraint: int, polys=None) -> dict:
                                      for a, b in zip(bits, want_bits))}
 
 
+def forward_bound(bm: torch.Tensor, dec: torch.Tensor, constraint: int) -> tuple[float, str]:
+    """The forward kernel's bound: bm in, decisions and final metrics out;
+    2 adds and 1 compare per target state and step."""
+    steps, n_codes, lanes = bm.shape
+    states = 1 << (constraint - 1)
+    return bound(4 * (steps * n_codes * lanes + steps * dec.shape[1] * lanes + states * lanes),
+                 3 * states * steps * lanes)
+
+
+def traceback_bounds(dec: torch.Tensor):
+    """(one word read and one bit written per (step, lane), the floor of a
+    kernel that stages all G words of a step), each (ms, by)."""
+    steps, groups, lanes = dec.shape
+    return (bound(4 * 2 * steps * lanes, 5 * steps * lanes),
+            bound(4 * (groups + 1) * steps * lanes, 5 * steps * lanes))
+
+
 def check_viterbi_kernels() -> dict:
     """Phase 8: both Viterbi kernels equal their plain versions bit for bit,
     for K = 5 and 7 at small shapes (one lane, as MIL-STD-188-110 decodes,
@@ -672,14 +737,7 @@ def check_viterbi_kernels() -> dict:
     torch.cuda.synchronize()
 
     groups = dec.shape[1]
-    states = 1 << (constraint - 1)
-    n_codes = bm.shape[1]
-
-    def forward_bound(steps, lanes):  # 2 adds + 1 compare per target state
-        return bound(4 * (steps * n_codes * lanes + steps * groups * lanes + states * lanes),
-                     3 * states * steps * lanes)
-
-    fwd_bound = forward_bound(steps, lanes)
+    fwd_bound = forward_bound(bm, dec, constraint)
     # MIL-STD-188-110's plan: one lane, one warp, latency-bound
     one = noisy_branch_metrics(1, MIL_STEPS, constraint, seed=7)
     check_viterbi(one, constraint)
@@ -688,25 +746,19 @@ def check_viterbi_kernels() -> dict:
              for _ in range(2)]
     plain1.append(cuda_ms(lambda: viterbi.viterbi_forward(one, constraint, polys),
                           PLAIN_VITERBI_CALLS))
-    bound1, by1 = forward_bound(MIL_STEPS, 1)
+    one_dec, _ = viterbi.viterbi_forward_cuda(one, constraint, polys)
+    bound1, by1 = forward_bound(one, one_dec, constraint)
     phase("8 timing", f"viterbi_forward at {tuple(one.shape)} (one lane): kernel {kern1[0]:.4f}/"
           f"{kern1[1]:.4f} ms (mean of {TIMED_LAUNCHES}), plain {plain1[0]:.4f}/{plain1[1]:.4f} "
           f"ms; bound {bound1:.4f} ms by {by1}, {100 * bound1 / (sum(kern1) / 2):.2f}% of it")
 
-    def traceback_bounds(steps, lanes):
-        """(one word read and one bit written per (step, lane), the floor of a
-        kernel that stages all G words of a step), each (ms, by)."""
-        return (bound(4 * 2 * steps * lanes, 5 * steps * lanes),
-                bound(4 * (groups + 1) * steps * lanes, 5 * steps * lanes))
-
-    one_dec, _ = viterbi.viterbi_forward_cuda(one, constraint, polys)
     tb1 = [cuda_ms(lambda: viterbi.viterbi_traceback(one_dec, constraint, polys),
                    PLAIN_VITERBI_CALLS)]
     tk1 = [cuda_ms(lambda: viterbi.viterbi_traceback_cuda(one_dec, constraint, polys))
            for _ in range(2)]
     tb1.append(cuda_ms(lambda: viterbi.viterbi_traceback(one_dec, constraint, polys),
                        PLAIN_VITERBI_CALLS))
-    (tb_bound1, tb_by1), (tb_all1, _) = traceback_bounds(MIL_STEPS, 1)
+    (tb_bound1, tb_by1), (tb_all1, _) = traceback_bounds(one_dec)
     phase("8 timing", f"viterbi_traceback at {tuple(one_dec.shape)} (one lane): kernel "
           f"{tk1[0]:.4f}/{tk1[1]:.4f} ms (mean of {TIMED_LAUNCHES}), plain {tb1[0]:.4f}/"
           f"{tb1[1]:.4f} ms; bound {tb_bound1:.3g} ms by {tb_by1} (all-words floor "
@@ -723,10 +775,10 @@ def check_viterbi_kernels() -> dict:
     phase("8 timing", f"viterbi_traceback at {tuple(off.shape)}, decisions 4 bytes off 16-byte "
           f"alignment (4-byte copies): kernel {tk_off[0]:.4f}/{tk_off[1]:.4f} ms (mean of "
           f"{TIMED_LAUNCHES}); bits equal the plain version's")
-    tb_bound, (tb_all, _) = traceback_bounds(steps, lanes)
+    tb_bound, (tb_all, _) = traceback_bounds(dec)
     table = {}
     for name, (b_ms, b_by), err, shape in (
-            ("viterbi_forward", fwd_bound, errs["forward_abs_err"], [steps, n_codes, lanes]),
+            ("viterbi_forward", fwd_bound, errs["forward_abs_err"], list(bm.shape)),
             ("viterbi_traceback", tb_bound, errs["traceback_abs_err"], [steps, groups, lanes])):
         kern, plain = times[name]
         table[name] = {"max_abs_err": err, "ms": sum(kern) / 2, "plain_ms": sum(plain) / 2,
@@ -954,9 +1006,299 @@ def time_gnss_paths(dev: torch.device) -> None:
         "ms_per_call": (time.perf_counter() - t0) * 1e3 / GNSS_TIMED_BLOCKS,
         "launches_per_call": (few[1]["device_events"] - few[0]["device_events"]) / 10,
         "busy_ms_per_call": (few[1]["busy_ms"] - few[0]["busy_ms"]) / 10, "shape": [n_ch, bs]}
+    del full
+    table["e1b tracking step"] = time_e1b_step(dev)
     table["pcps_grid"].update({"bound_ms": b_ms, "bound_by": b_by, "shape": [p, d, l, k]})
     table["composite_block"]["shape"] = [n_ch, GNSS_BLOCK_SAMPLES]
     phase("19 gnss paths", json.dumps(table))
+
+
+def time_e1b_step(dev: torch.device) -> dict:
+    """One E1B closed tracking step of the Galileo gate's six channels
+    (20,460 samples a block at 5.115 MS/s), as phase 19 times the GPS step:
+    host ms per block over E1B_TIMED_BLOCKS blocks, launches and busy time
+    per block from a 20- less a 10-block call."""
+    cfg, _ = gal.galileo_scenario((E1B_TIMED_BLOCKS + 2) * gal.T_EP)
+    prns = [s.prn for s in cfg.satellites]
+    rx = scenario.GnssScenario(cfg, device=dev).generate_device()
+    code_t = torch.from_numpy(np.stack(gal.e1b_codes(prns)).astype(np.float32)).to(dev)
+    bs = gal.tracking_config(gal.CLOSED_LOOP).block_size
+    start = np.arange(len(prns)) * 617
+    zeros = np.zeros(len(prns))
+
+    def run(blocks):
+        return gal.closed_pass(rx[: (blocks + 1) * bs], code_t, start, zeros, zeros).prompt_i
+
+    few = [breakdown(lambda b=b: run(b)) for b in (10, 20)]
+    run(E1B_TIMED_BLOCKS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(E1B_TIMED_BLOCKS).cpu()
+    return {"ms_per_call": (time.perf_counter() - t0) * 1e3 / E1B_TIMED_BLOCKS,
+            "launches_per_call": (few[1]["device_events"] - few[0]["device_events"]) / 10,
+            "busy_ms_per_call": (few[1]["busy_ms"] - few[0]["busy_ms"]) / 10,
+            "shape": [len(prns), bs]}
+
+
+def kernel_counts() -> dict:
+    return {"dechirp_power": dechirp_power.launches, "fir_decimate": fir.fir_decimate.launches,
+            "nco_mix": nco.nco_mix.launches, "viterbi_forward": viterbi.viterbi_forward.launches,
+            "viterbi_traceback": viterbi.viterbi_traceback.launches}
+
+
+class DecodeShapes:
+    """Records the shape of every I/NAV Viterbi decode (lanes = page parts)
+    while it is entered; the decodes run unchanged."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def __enter__(self):
+        self.orig = inav.viterbi_decode
+
+        def spy(received, *args, **kwargs):
+            self.shapes.append(tuple(received.shape))
+            return self.orig(received, *args, **kwargs)
+
+        inav.viterbi_decode = spy
+        return self
+
+    def __exit__(self, *exc):
+        inav.viterbi_decode = self.orig
+
+
+def check_inav_launches(name: str, counts: dict, decodes: int) -> None:
+    """The I/NAV decodes launched both Viterbi kernels once each, and no
+    other hand-written kernel ran."""
+    want = {"dechirp_power": 0, "fir_decimate": 0, "nco_mix": 0,
+            "viterbi_forward": decodes, "viterbi_traceback": decodes}
+    if decodes <= 0 or counts != want:
+        raise AssertionError(f"the {name} path launched {counts}, want {want}")
+
+
+def drive_galileo_path(dev: torch.device) -> dict:
+    """Phase 20: the Galileo E1B gate at full size (six SVs, 11.2 s at
+    5.115 MS/s) through `entry.galileo_pvt`; fails unless every SV is
+    acquired and decoded with words 1-5 and one IODnav, the error is under
+    60 m, and each channel's pages went through one launch of each Viterbi
+    kernel (no other hand-written kernel)."""
+    zero_launch_counts()
+    with DecodeShapes() as decodes:
+        out = galileo_pvt(dev)
+    counts = kernel_counts()
+    pages = {r["prn"]: f"{r['pages_crc_ok']}/{r['pages_seen']}" for r in out["per_sv"]}
+    phase("20 galileo pvt", f"{out['of']} SVs, {gal.DURATION_S} s at {gal.FS / 1e6} MS/s on "
+          f"{out['device']}: "
+          f"gen_s {out['gen_s']:.6f}, acquire_s {out['acquire_s']:.6f}, track_s "
+          f"{out['track_s']:.6f}, decode_s {out['decode_s']:.6f}; error {out['value']:.6f} m, "
+          f"acquired {out['acquired']}/{out['of']}, decoded {out['decoded']}/{out['of']}, clock "
+          f"bias {out['clock_bias_m']:.3f} m, max residual {out['max_residual_m']:.3f} m, C/N0 "
+          f"estimate {out['cn0_est_dbhz']:.2f} dB-Hz; pages CRC ok/seen by PRN {json.dumps(pages)}"
+          f"; decodes (lanes, 240) {decodes.shapes}; launches {json.dumps(counts)}")
+    words = all(r["words"] == [1, 2, 3, 4, 5] and "iodnav" in r for r in out["per_sv"])
+    if not (out["pass"] and out["acquired"] == out["decoded"] == out["of"] == 6 and words
+            and out["value"] < GAL_MAX_ERROR_M):
+        raise AssertionError(f"the Galileo gate failed: {json.dumps(out)}")
+    check_inav_launches("Galileo", counts, len(decodes.shapes))
+    return {"launches": counts["viterbi_forward"], "lanes": [s[0] for s in decodes.shapes]}
+
+
+def drive_dual_path(dev: torch.device) -> dict:
+    """Phase 21: the joint GPS + Galileo gate at full size (5 + 5 SVs,
+    24.3 s at 5.115 MS/s) through `entry.dual_pvt`; fails unless all ten
+    SVs decode, the joint error is under 60 m and the static receiver's
+    solved speed under 1 m/s, with one launch of each Viterbi kernel per
+    Galileo channel (no other hand-written kernel)."""
+    zero_launch_counts()
+    with DecodeShapes() as decodes:
+        out = dual_pvt(dev)
+    counts = kernel_counts()
+    joint, vel = out["joint"] or {}, out["velocity"] or {}
+    speed = vel.get("speed_mps", math.inf)
+
+    def err(fix):
+        return None if fix is None else fix["error_m"]
+
+    phase("21 dual pvt", f"{out['of']} SVs (5 GPS + 5 Galileo), {dual.DURATION_S} s at "
+          f"{dual.FS / 1e6} MS/s on {out['device']}: gen_s {out['gen_s']:.6f}, stages "
+          f"{json.dumps(out['stage_s'])}; joint error {err(joint) if joint else math.inf:.6f} "
+          f"m, GPS-only {err(out['gps_only'])} m, Galileo-only {err(out['galileo_only'])} m, "
+          f"ISB {joint.get('isb_m')} m, GDOP {joint.get('gdop')}, speed {speed:.6f} m/s, "
+          f"truth-position control {err(out['truth_pos_control'])} m; acquired "
+          f"{out['acquired']}/{out['of']}, decoded {out['decoded']}/{out['of']}; decodes "
+          f"(lanes, 240) {decodes.shapes}; launches {json.dumps(counts)}")
+    if not (out["pass"] and out["decoded"] == out["of"] == 10 and joint
+            and joint["error_m"] < DUAL_MAX_ERROR_M and speed < DUAL_MAX_SPEED_MPS):
+        raise AssertionError(f"the dual gate failed: {json.dumps(out)}")
+    check_inav_launches("dual", counts, len(decodes.shapes))
+    return {"launches": counts["viterbi_forward"], "lanes": [s[0] for s in decodes.shapes]}
+
+
+def drive_glonass_path(dev: torch.device) -> None:
+    """Phase 22: the GLONASS L1OF gate at full size (six FDMA channels
+    k = −3…+2, 4 s at 6.132 MS/s) through `entry.glonass_track`; fails
+    unless every channel is OK (acquired, lock > 2, |Doppler error| < 5 Hz,
+    bit match ≥ 0.98) and no hand-written kernel was launched."""
+    zero_launch_counts()
+    out = glonass_track(dev)
+    counts = kernel_counts()
+    per = [{k: c[k] for k in ("k", "lock", "dop_err_hz", "bit_match", "cn0_dbhz", "ok")}
+           for c in out["per_ch"]]
+    phase("22 glonass track", f"{out['of']} FDMA channels, {glo.DURATION_S} s at "
+          f"{glo.FS / 1e6} MS/s on {out['device']}: gen_s {out['gen_s']:.6f}, mix_s "
+          f"{out['mix_s']:.6f}, acquire_s {out['acquire_s']:.6f}, track_s "
+          f"{out['track_s']:.6f}; {out['value']}/{out['of']} OK; {json.dumps(per)}; launches "
+          f"{json.dumps(counts)}")
+    if not (out["pass"] and out["value"] == 6 and all(c["ok"] for c in out["per_ch"])):
+        raise AssertionError(f"the GLONASS gate failed: {json.dumps(out)}")
+    if any(counts.values()):
+        raise AssertionError(f"the GLONASS path launched a hand-written kernel: {counts}")
+
+
+def inav_branch_metrics(lanes: int, seed: int, dev: torch.device) -> torch.Tensor:
+    """(120, 4, lanes) branch metrics of hard-sign I/NAV page parts on the
+    card: random pages, ±1 symbols plus N(0, 0.8²), signs, then the
+    decoder's own deinterleave and G2 un-inversion."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    while len(parts) < lanes:
+        page = inav.encode_page(rng.integers(0, 2, 112), rng.integers(0, 2, 16))
+        parts += [page[10:250], page[260:500]]
+    soft = np.sign(1.0 - 2.0 * np.stack(parts[:lanes]) + 0.8 * rng.standard_normal((lanes, 240)))
+    rx = torch.from_numpy(inav.decoder_input(soft)).to(dev)
+    return convolutional._branch_metrics(rx.reshape(lanes, 120, 2))
+
+
+def check_e1b_card_against_cpu(dev: torch.device, gal_run: dict, dual_run: dict) -> dict:
+    """Phase 23: the E1B and I/NAV paths on the card against the port's CPU
+    results. Both Viterbi kernels bit for bit at the I/NAV shape (T = 120,
+    terminated) for one lane and each gate's lane counts, timed beside the
+    plain versions at the Galileo gate's count; `decode_stream` on the card
+    equal to the CPU on one channel's symbols; the E1B acquisition with the
+    sub-phase bank (decisions, code phase and Doppler equal, metrics within
+    rtol 1e-4) and 300 closed blocks of six channels (code phase within
+    0.05 subchips, carrier 0.1 Hz, discriminators 1e-3, C/N0 0.05 dB,
+    prompts 1e-3 of the channel's largest); the GLONASS mixdown within
+    1e-5 of its peak. Returns the kernel table's I/NAV entries."""
+    constraint, polys = 7, convolutional.K7_POLYS
+    lanes_seen = sorted({1, *gal_run["lanes"], *dual_run["lanes"]})
+    for lanes in lanes_seen:
+        check_viterbi(inav_branch_metrics(lanes, lanes, dev), constraint, polys)
+    lanes = max(gal_run["lanes"])
+    bm = inav_branch_metrics(lanes, 23, dev)
+    errs = check_viterbi(bm, constraint, polys)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, constraint, polys)
+    fwd = in_turns(lambda: viterbi.viterbi_forward(bm, constraint, polys),
+                   lambda: viterbi.viterbi_forward_cuda(bm, constraint, polys))
+    tb = in_turns(lambda: viterbi.viterbi_traceback(dec, constraint, polys),
+                  lambda: viterbi.viterbi_traceback_cuda(dec, constraint, polys))
+    table = {}
+    for name, (kern, plain), (b_ms, b_by), err in (
+            ("viterbi_forward", fwd, forward_bound(bm, dec, constraint),
+             errs["forward_abs_err"]),
+            ("viterbi_traceback", tb, traceback_bounds(dec)[0], errs["traceback_abs_err"])):
+        table[name] = {"ms_inav": sum(kern) / 2, "plain_ms_inav": sum(plain) / 2,
+                       "bound_ms_inav": b_ms, "bound_by_inav": b_by, "max_abs_err_inav": err,
+                       "shape_inav": list(bm.shape if name == "viterbi_forward" else dec.shape),
+                       "launches_galileo": gal_run["launches"],
+                       "launches_dual": dual_run["launches"]}
+        phase("23 inav viterbi", f"{name} at {tuple(table[name]['shape_inav'])} (lanes % 4 = "
+              f"{lanes % 4}{': the traceback stages by 4-byte copies' if lanes % 4 else ''}): "
+              f"kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms "
+              f"(CUDA events, mean of {TIMED_LAUNCHES} back-to-back calls: the host's rate at "
+              f"this size); bound {b_ms:.6f} ms by {b_by}, "
+              f"{100 * b_ms / table[name]['ms_inav']:.3g}% of it; launches {gal_run['launches']} "
+              f"(Galileo gate), {dual_run['launches']} (dual gate)")
+    # At these sizes back-to-back launches timed with CUDA events measure the
+    # host's launch rate; queued behind a busy stream they measure the kernel.
+    for n in sorted({*gal_run["lanes"], *dual_run["lanes"]}):
+        bm_n = inav_branch_metrics(n, 29, dev)
+        dec_n, _ = viterbi.viterbi_forward_cuda(bm_n, constraint, polys)
+        one = {"viterbi_forward": lambda: viterbi.viterbi_forward_cuda(bm_n, constraint, polys),
+               "viterbi_traceback": lambda: viterbi.viterbi_traceback_cuda(dec_n, constraint,
+                                                                           polys)}
+        for name, fn in one.items():
+            table[name].setdefault("device_ms_inav", {})[str(n)] = queued_ms(fn)
+        fwd_ms, tb_ms = (table[k]["device_ms_inav"][str(n)] for k in one)
+        phase("23 inav viterbi", f"T 120, {n} lanes (lanes % 4 = {n % 4}), {TIMED_LAUNCHES} "
+              f"launches queued behind a busy stream: forward {fwd_ms:.6f} ms, traceback "
+              f"{tb_ms:.6f} ms a launch")
+    phase("23 inav viterbi", f"both kernels equal their plain versions bit for bit on hard-sign "
+          f"I/NAV parts, T 120, lanes {lanes_seen}, from state 0 and the best state")
+
+    cfg, truth = gal.galileo_scenario(E1B_CHECK_SECONDS)
+    prns = [s.prn for s in cfg.satellites]
+    eph = circular_ephemeris_for_position(gal._geometry()[1][0], truth, gal.T0_SOW + 10.9,
+                                          prn=1, toe_quantum=60.0)
+    tx = 1.0 - 2.0 * gal.build_sv_nav_symbols(eph, 1, gal.T0_SOW + 2250 * gal.T_EP)[37:]
+    rng = np.random.default_rng(23)
+    soft = -np.sign(tx + 0.7 * rng.standard_normal(len(tx)))
+    pages = {d: inav.decode_stream(soft, device=d) for d in ("cpu", dev)}
+    same = len(pages["cpu"]) == len(pages[dev]) and all(
+        all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+        for a, b in zip(pages["cpu"], pages[dev]))
+    if not (same and pages["cpu"]):
+        raise AssertionError("decode_stream on the card differs from the CPU")
+    phase("23 inav decode", f"decode_stream of {len(soft)} hard-sign symbols (one channel, "
+          f"inverted): {len(pages['cpu'])} pages, {sum(p['crc_ok'] for p in pages['cpu'])} CRC ok, "
+          f"equal on the card and the CPU")
+
+    rx = scenario.GnssScenario(cfg, device=dev).generate_device()
+    rx_cpu = rx.cpu()
+    n_per = int(round(gal.FS * gal.T_EP))
+    bank = acquisition.sampled_code_bank(gal.e1b_codes(prns), gal.CHIP_RATE * scenario.SUBCHIP,
+                                         gal.FS, n_per, n_subphases=4)
+    acq = {str(d): acquisition.acquire(x[: gal.ACQ_EPOCHS * n_per], bank, prns, gal.FS,
+                                       gal.ACQ_CONFIG) for d, x in (("cpu", rx_cpu), (dev, rx))}
+    card, cpu = acq[str(dev)], acq["cpu"]
+    for name in ("detected", "code_phase", "doppler_hz"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"E1B acquire {name}: card {getattr(card, name).tolist()}, CPU "
+                                 f"{getattr(cpu, name).tolist()}")
+    metric_rel = float(((card.peak_metric.cpu() - cpu.peak_metric).abs() / cpu.peak_metric).max())
+    if not (metric_rel <= REL_TOL and bool(cpu.detected.all())):
+        raise AssertionError(f"E1B acquire peak metric card vs CPU: rtol {metric_rel:.3g}")
+    phase("23 e1b card vs cpu", f"acquire, 6 PRNs × 4 sub-phases × {gal.ACQ_EPOCHS} epochs: "
+          f"detected, code phase and Doppler equal, peak metric rtol {metric_rel:.3g}")
+
+    seeds = gal.e1b_receiver(rx, prns)
+    code_t = torch.from_numpy(np.stack(gal.e1b_codes(prns)).astype(np.float32))
+    bs = seeds["bs"]
+    n = int(seeds["istart"].max()) + E1B_CHECK_BLOCKS * bs
+    outs = {str(d): gal.closed_pass(x[:n], code_t.to(d), seeds["istart"], seeds["phase_ref"],
+                                    seeds["dop_ref"]) for d, x in (("cpu", rx_cpu), (dev, rx))}
+    card = {k: v.cpu() for k, v in outs[str(dev)]._asdict().items()}
+    cpu = outs["cpu"]._asdict()
+    scale = torch.abs(torch.complex(cpu["prompt_i"], cpu["prompt_q"])).amax(-1, keepdim=True)
+    worst = {}
+    for name in ("prompt_i", "prompt_q", "early_mag", "late_mag"):
+        worst[name] = float(((card[name] - cpu[name]).abs() / scale).max())
+        if not worst[name] <= PROMPT_REL_TOL:
+            raise AssertionError(f"E1B track {name} card vs CPU: {worst[name]:.3g} of max|prompt|")
+    dphase = (card["code_phase"] - cpu["code_phase"]).abs()
+    worst["code_phase"] = float(torch.minimum(dphase, gal.CODE_LEN - dphase).max())
+    for name, tol in E1B_TRACK_TOLS.items():
+        if name != "code_phase":
+            worst[name] = float((card[name] - cpu[name]).abs().max())
+        if not worst[name] <= tol:
+            raise AssertionError(f"E1B track {name} card vs CPU: max|Δ| {worst[name]:.3g} > {tol}")
+    if card["prompt_i"].shape != (6, E1B_CHECK_BLOCKS):
+        raise AssertionError(f"E1B track: {tuple(card['prompt_i'].shape)} blocks")
+    phase("23 e1b card vs cpu", f"closed pass, 6 channels × {E1B_CHECK_BLOCKS} blocks of {bs}: "
+          f"worst {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} (prompts as a "
+          f"share of max|prompt|, code phase in subchips)")
+
+    gcfg, _ = glo.glonass_scenario(MIXDOWN_SAMPLES / glo.FS)
+    x = scenario.GnssScenario(gcfg, device=dev).generate_device()
+    nums, den = glo._fdma_plan(glo.KS)
+    mixed = {str(d): glo.mixdown(x.to(d), nums, den) for d in ("cpu", dev)}
+    _, rel = rel_err(mixed[str(dev)].cpu(), mixed["cpu"])
+    if not rel <= GLONASS_MIX_TOL:
+        raise AssertionError(f"GLONASS mixdown card vs CPU: max|Δ|/max {rel:.3g} > "
+                             f"{GLONASS_MIX_TOL}")
+    phase("23 glonass card vs cpu", f"mixdown of {MIXDOWN_SAMPLES} samples to 6 channels "
+          f"(den {den}): max|Δ|/max(CPU) {rel:.3g} <= {GLONASS_MIX_TOL}")
+    return table
 
 
 def main() -> None:
@@ -1157,15 +1499,20 @@ def main() -> None:
     # must stay at zero through it.
     zero_launch_counts()
     drive_gps_path(dev)
-    counts = {"dechirp_power": dechirp_power.launches, "fir_decimate": fir.fir_decimate.launches,
-              "nco_mix": nco.nco_mix.launches,
-              "viterbi_forward": viterbi.viterbi_forward.launches,
-              "viterbi_traceback": viterbi.viterbi_traceback.launches}
+    counts = kernel_counts()
     if any(counts.values()):
         raise AssertionError(f"the GPS path launched a hand-written kernel: {counts}")
     phase("17 launches", f"the GPS path launched no hand-written kernel: {json.dumps(counts)}")
     check_gnss_card_against_cpu(dev)
     time_gnss_paths(dev)
+
+    # The Galileo, joint and GLONASS receivers, each with the counts set to 0
+    # just before it and read just after: the I/NAV decodes launch both Viterbi
+    # kernels once per channel, GLONASS none.
+    gal_run = drive_galileo_path(dev)
+    dual_run = drive_dual_path(dev)
+    drive_glonass_path(dev)
+    inav_timing = check_e1b_card_against_cpu(dev, gal_run, dual_run)
 
     def dechirp_bound(t):  # complex64 rows in, float32 power out; FFT flops
         k = t["k"]
@@ -1201,6 +1548,7 @@ def main() -> None:
             "replaces": f"r4w_tpu/kernels/pallas_kernels.py:{line}",
             "launches": count,
             **viterbi_timing[name],
+            **inav_timing[name],
             "library_ms": None,
         })
     kernels.append({

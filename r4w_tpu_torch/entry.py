@@ -13,8 +13,16 @@ by 8. `gps_pvt_fix(device)` is the counterpart of ``bench.py``'s
 ``bench_gps_pvt_fix``: the GPS L1 C/A receiver from a 24.3 s six-satellite
 capture to a position fix. `pcps_bench(device)` is the counterpart of
 ``bench.py``'s ``bench_pcps``: the PCPS correlation grid of 8 PRNs × 41
-Doppler bins × 2046 code phases, in correlations per second. Every entry
-point runs on the CUDA card unless the caller names another device.
+Doppler bins × 2046 code phases, in correlations per second.
+`galileo_pvt(device)` is the counterpart of ``tools/galileo_pvt.py``: the
+Galileo E1B receiver from an 11.2 s six-satellite capture to a position
+fix, its I/NAV pages decoded by the Viterbi kernels. `dual_pvt(device)` is
+the counterpart of ``bench.py``'s ``bench_dual_pvt``: GPS L1 C/A and
+Galileo E1B receivers on one 24.3 s ten-satellite capture, to a joint fix
+with an inter-system bias. `glonass_track(device)` is the counterpart of
+``bench.py``'s ``bench_glonass_track``: six GLONASS L1OF FDMA channels
+mixed down exactly, acquired and tracked over 4 s. Every entry point runs
+on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch
 
 from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
-from r4w_tpu_torch.gnss import acquisition, gps_pvt_fix as gps, prn
+from r4w_tpu_torch.gnss import acquisition, dual_pvt as dual, galileo_pvt as gal
+from r4w_tpu_torch.gnss import glonass_track as glo, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.parallel import ber_sweep
 from r4w_tpu_torch.waveforms import lora
@@ -250,6 +259,53 @@ def gps_pvt_fix(device=DEFAULT_DEVICE, duration_s: float = 24.3, cn0_dbhz: float
     synchronisation.
     """
     return gps.main_decoded(duration_s, cn0_dbhz, device=device)
+
+
+def galileo_pvt(device=DEFAULT_DEVICE, cn0_dbhz: float = 48.0,
+                duration_s: float = gal.DURATION_S) -> dict:
+    """The Galileo E1B decoded-ephemeris gate on `device`.
+
+    Six satellites at `cn0_dbhz` with I/NAV (a filler part, then the pages
+    of words 1-5) at 5.115 MS/s for `duration_s`: scenario on the device,
+    acquisition over 12 epochs with a 4-sub-phase CBOC bank, an open-loop
+    Doppler refine and code sweep, six Costas channels over the whole
+    capture, the I/NAV pages of each channel decoded in one batched
+    Viterbi call on the device, words, ephemeris and the position solve
+    on the host. Returns the receiver's dict: ``value`` (position error,
+    m), ``pass``, ``acquired``, ``decoded``, ``per_sv`` records, and
+    ``gen_s``, ``acquire_s``, ``track_s`` and ``decode_s``, wall times
+    that each end in a device synchronisation.
+    """
+    return gal.main(cn0_dbhz, device=device, duration_s=duration_s)
+
+
+def dual_pvt(device=DEFAULT_DEVICE, cn0_dbhz: float = 48.0,
+             duration_s: float = dual.DURATION_S) -> dict:
+    """The joint GPS + Galileo gate on `device`.
+
+    Five GPS L1 C/A and five Galileo E1B satellites in one capture at
+    5.115 MS/s for `duration_s`; both receivers on the same samples, LNAV
+    and I/NAV decoded, then the joint fix (one clock state per system),
+    the GPS-only and Galileo-only fixes, the velocity and a truth-position
+    control. Returns ``value`` (joint error, m), ``pass``, ``decoded``,
+    ``joint`` (with ``isb_m``), ``gps_only``, ``galileo_only``,
+    ``velocity``, ``per_sv`` and the stage times.
+    """
+    return dual.main(cn0_dbhz, duration_s, device=device)
+
+
+def glonass_track(device=DEFAULT_DEVICE, cn0_dbhz: float = 45.0,
+                  duration_s: float = glo.DURATION_S) -> dict:
+    """The GLONASS L1OF FDMA gate on `device`.
+
+    Six satellites on channels k = −3…+2 at 6.132 MS/s for `duration_s`:
+    the exact integer-phase mixdown to a (6, N) baseband bank, PCPS per
+    channel with the shared m-sequence, six Costas channels in one
+    tracking call, then per channel the lock, Doppler error and 20 ms bit
+    match. Returns ``value`` (channels OK), ``pass``, ``per_ch`` and the
+    stage times.
+    """
+    return glo.main(cn0_dbhz, duration_s, device=device)
 
 
 def pcps_inputs(device=DEFAULT_DEVICE, seed: int = 7):

@@ -12,11 +12,15 @@ Cells: the LoRa Monte-Carlo sweep at SF7 and at SF12 (one ``ber_sweep``
 call at ``entry.lora_sweep``'s shape), the decode bench (one
 ``viterbi_decode_mxu`` at ``entry.viterbi_bench``'s 4096 × 2048 shape),
 the DDC bench (one ``digital_down_convert`` at ``entry.ddc_bench``'s
-64 × 2^20 shape) and the GPS tracking cell (``gnss.gps_pvt_fix.l1ca_receiver``
+64 × 2^20 shape), the GPS tracking cell (``gnss.gps_pvt_fix.l1ca_receiver``
 on 1.001 s of the decoded gate's six-satellite capture at 4.092 MS/s: one
 acquisition over 12 ms, then six channels × 1000 one-ms blocks; the
-capture is made on the card before the cell and is not in its time).
-It needs a CUDA card; it has no CPU path.
+capture is made on the card before the cell and is not in its time) and
+the E1B tracking cell (``gnss.galileo_pvt.closed_pass``, the Galileo
+gate's closed Costas pass over the first 1.008 s of its six-satellite
+capture at 5.115 MS/s: six channels × about 250 four-ms blocks of 20,460
+samples, seeded by one run of ``e1b_receiver`` on the same capture before
+the cell). It needs a CUDA card; it has no CPU path.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, SWE
                                  SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_signal,
                                  sweep_lanes)
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.gnss import galileo_pvt as gal
 from r4w_tpu_torch.gnss import gps_pvt_fix as gps
 from r4w_tpu_torch.gnss.scenario import GnssScenario
 from r4w_tpu_torch.ops.stream_math import digital_down_convert
@@ -44,6 +49,7 @@ from r4w_tpu_torch.waveforms import lora
 TOP_EVENTS = 8
 NAME_CHARS = 96  # device event names are cut to this length
 GPS_CELL_SECONDS = 1.001  # 1000 tracking blocks after the latest channel's window start
+GAL_CELL_SECONDS = 1.008  # 250 E1B blocks after the latest channel's code epoch
 
 
 def breakdown(fn) -> dict:
@@ -90,7 +96,21 @@ def cells(device: torch.device) -> dict:
     rx = GnssScenario(cfg, device=device).generate_device()
     runs["gps_tracking"] = functools.partial(gps.l1ca_receiver, rx,
                                              [s.prn for s in cfg.satellites])
+    runs["e1b_tracking"] = e1b_tracking_cell(device)
     return runs
+
+
+def e1b_tracking_cell(device: torch.device):
+    """The Galileo gate's closed pass over its first GAL_CELL_SECONDS, as a
+    no-argument call; the capture and the seeds (acquisition, Doppler
+    refine and code sweep of `e1b_receiver`) are made before it."""
+    cfg, _ = gal.galileo_scenario(GAL_CELL_SECONDS)
+    prns = [s.prn for s in cfg.satellites]
+    rx = GnssScenario(cfg, device=device).generate_device()
+    seeds = gal.e1b_receiver(rx, prns)
+    code_t = torch.from_numpy(np.stack(gal.e1b_codes(prns)).astype(np.float32)).to(device)
+    return functools.partial(gal.closed_pass, rx, code_t, seeds["istart"], seeds["phase_ref"],
+                             seeds["dop_ref"])
 
 
 def main() -> None:

@@ -1,13 +1,15 @@
 """The port's numpy GNSS modules against ``r4w_tpu.gnss``'s, bit for bit.
 
-`coordinates`, `environment`, `prn`, `boc`, `ephemeris`, `nav_message`
-and `pvt` are copies of the JAX package's numpy modules with only their
-imports pointed at the port. Each test feeds both sides the inputs of the
+`coordinates`, `environment`, `prn`, `boc`, `ephemeris`, `nav_message`,
+`pvt` and `inav_words` are copies of the JAX package's numpy modules with
+only their imports pointed at the port; `inav` copies every function of
+the reference's but those that reach the FEC. Each test feeds both sides the inputs of the
 JAX package's own tests (``tests/test_gnss.py``, ``test_pvt.py``,
 ``test_adsb_ephemeris.py``, ``test_gnss_pvt_decoded.py``) and requires
 equal outputs (``assert_array_equal``, tolerance 0).
 """
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +29,10 @@ from r4w_tpu_torch.gnss import gps_pvt_fix as port_fix
 from tools import gps_pvt_fix as ref_fix
 
 REPO = Path(__file__).resolve().parents[1]
-COPIES = ("coordinates", "environment", "prn", "boc", "ephemeris", "nav_message", "pvt")
+COPIES = ("coordinates", "environment", "prn", "boc", "ephemeris", "nav_message", "pvt",
+          "inav_words")
+# inav's functions that reach the FEC (the port's conv_encode and viterbi_decode)
+INAV_FEC = {"_conv_encode_part", "decode_part", "decode_page", "decode_stream"}
 TOW_SF4 = 57600
 T0 = ref_nav.subframe_start_sow(TOW_SF4)
 RINEX = (  # tests/test_adsb_ephemeris.py:76-97
@@ -70,6 +75,30 @@ def test_copy_differs_only_in_its_imports(name):
     ref = (REPO / "r4w_tpu" / "gnss" / f"{name}.py").read_text()
     got = (REPO / "r4w_tpu_torch" / "gnss" / f"{name}.py").read_text()
     assert got == ref.replace("from r4w_tpu.gnss", "from r4w_tpu_torch.gnss")
+
+
+def _top_level(path: Path) -> dict[str, str]:
+    """Source of each top-level function and assignment, by name."""
+    text = path.read_text()
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = ast.get_source_segment(text, node)
+        elif isinstance(node, ast.Assign):
+            out[node.targets[0].id] = ast.get_source_segment(text, node)
+    return out
+
+
+def test_inav_copies_every_function_that_does_not_reach_the_fec():
+    ref = _top_level(REPO / "r4w_tpu" / "gnss" / "inav.py")
+    got = _top_level(REPO / "r4w_tpu_torch" / "gnss" / "inav.py")
+    copied = ref.keys() - INAV_FEC
+    assert copied == {"SYNC", "PAGE_SYMS", "PART_BITS", "CRC_POLY", "crc24q", "_int_bits",
+                      "_interleave", "_deinterleave", "encode_page", "pages_to_symbols_pm",
+                      "sync_search", "transmit_time_at_block"}
+    for name in copied:
+        assert got[name] == ref[name], name
+    assert INAV_FEC < got.keys()
 
 
 def test_galileo_table_is_the_ports_own_byte_copy():
@@ -275,6 +304,12 @@ def test_lazy_imports_leave_jax_out():
         "sc.status(0.5); sc.generate_block(1000); st = sc.state()\n"
         "prn._galileo_icd_arrays.cache_clear(); code = prn.galileo_e1_code(7, 'B')\n"
         "assert len(code) == 4092 and e.prn == 1 and len(st['generator_state']) > 0\n"
+        "from r4w_tpu_torch.gnss import galileo_pvt as gal, inav, inav_words\n"
+        "syms = gal.build_sv_nav_symbols(eph, 1, 345609.0)\n"
+        "pages = inav.decode_stream(1.0 - 2.0 * syms, device='cpu')\n"
+        "words = {w['type']: w for w in (inav_words.decode_word(p['data112'], p['data16'])\n"
+        "                                for p in pages)}\n"
+        "assert inav_words.ephemeris_from_words(words, 1).prn == 1 and len(pages) == 5\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'tools'\n"
         "             or m.startswith('tools.'))\n"

@@ -24,9 +24,11 @@ from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import types
-from r4w_tpu_torch.entry import (ddc_bench, entry, gps_pvt_fix, lora_sweep, pcps_bench,
-                                 sweep_lanes, viterbi_bench, waterfall_snr_db)
-from r4w_tpu_torch.gnss import GnssScenario, init_state
+from r4w_tpu_torch.entry import (ddc_bench, dual_pvt, entry, galileo_pvt, glonass_track,
+                                 gps_pvt_fix, lora_sweep, pcps_bench, sweep_lanes, viterbi_bench,
+                                 waterfall_snr_db)
+from r4w_tpu_torch.gnss import GnssScenario, dual_pvt as dual, galileo_pvt as gal
+from r4w_tpu_torch.gnss import glonass_track as glo, init_state, inav
 from r4w_tpu_torch.gnss.gps_pvt_fix import main_code_phase, main_decoded
 from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, monte_carlo_ber
 from r4w_tpu_torch.waveforms import lora
@@ -143,9 +145,11 @@ def test_entry_points_default_to_the_card():
     to CUDA, and None resolves to it with no fallback to the CPU."""
     cuda = torch.device("cuda")
     for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate,
-               gps_pvt_fix, pcps_bench):
+               gps_pvt_fix, pcps_bench, galileo_pvt, dual_pvt, glonass_track):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
-    for fn in (GnssScenario, init_state, main_decoded, main_code_phase):  # None: DEFAULT_DEVICE
+    for fn in (GnssScenario, init_state, main_decoded, main_code_phase, gal.main, dual.main,
+               glo.main, gal.decode_sv_channel, inav.decode_stream, inav.decode_part,
+               inav.decode_page):  # None: DEFAULT_DEVICE
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
@@ -166,6 +170,9 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.gnss.coordinates, r4w_tpu_torch.gnss.environment\n"
             "import r4w_tpu_torch.gnss.prn, r4w_tpu_torch.gnss.boc, r4w_tpu_torch.gnss.ephemeris\n"
             "import r4w_tpu_torch.gnss.nav_message, r4w_tpu_torch.gnss.pvt\n"
+            "import r4w_tpu_torch.gnss.inav, r4w_tpu_torch.gnss.inav_words\n"
+            "import r4w_tpu_torch.gnss.galileo_pvt, r4w_tpu_torch.gnss.glonass_track\n"
+            "import r4w_tpu_torch.gnss.dual_pvt\n"
             "import r4w_tpu_torch.waveforms.gnss_waveforms\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
