@@ -30,10 +30,21 @@ each per channel; phase 22 ``glonass_track()`` (six FDMA channels, 4 s at
 Viterbi kernels at the I/NAV shape (T = 120, the gates' lane counts) bit
 for bit against their plain versions and times them, and holds the
 card's I/NAV decode, E1B acquisition and closed tracking and GLONASS
-mixdown against the port's CPU results. Each phase prints at least one
-line; a failed phase raises, and the exit code is then non-zero. The
-second-to-last line is the kernel table as JSON, the last line the device
-record.
+mixdown against the port's CPU results. Then the link round trips, each
+with the counts set to 0 before it and read after: phase 24
+``lora_packet_roundtrip()`` at SF7-SF12 (255-byte payloads with header and
+CRC behind a noise gap, one with a 400 Hz CFO, and noise alone), whose
+preamble search and demodulation both launch the dechirp kernel, timed
+at the search's window shapes; phase 25 ``ber_gate()`` at 1,000,000 bits
+a point (every point within 10% of theory), the waveform-level BPSK check
+and the six PSK/QAM waveforms (no hand-written kernel); phase 26 STANAG
+4285 at every mode, long interleave and four AWGN points, and HARQ, whose
+one-lane decodes launch both Viterbi kernels, timed at STANAG's T; phase
+27 ``pcps_gcorr_bench()`` in Gcorr/s; phase 28 the CRCs, the sync windows
+and decisions and the linear demodulator on the card against the port's
+CPU results. Each phase prints at least one line; a failed phase raises,
+and the exit code is then non-zero. The second-to-last line is the kernel
+table as JSON, the last line the device record.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
@@ -53,16 +64,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from r4w_tpu_torch import create_waveform
+from r4w_tpu_torch import arq, ber, create_waveform
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import windows
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
-                                 DDC_STREAMS, PCPS_CONFIG, PCPS_RATE_HZ, SWEEP_PAYLOAD_BYTES,
-                                 SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_bench,
-                                 ddc_signal, dual_pvt, entry, galileo_pvt, glonass_track,
-                                 gps_pvt_fix, lora_sweep, pcps_bench, pcps_inputs, sweep_lanes,
+                                 DDC_STREAMS, PACKET_GAP_SAMPLES, PCPS_CONFIG, PCPS_RATE_HZ,
+                                 SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB, VITERBI_INFO_BITS,
+                                 VITERBI_LANES, ber_gate, ddc_bench, ddc_signal, dual_pvt, entry,
+                                 galileo_pvt, gcorr_inputs, gcorr_step, glonass_track,
+                                 gps_pvt_fix, lora_packet_roundtrip, lora_sweep, packet_capture,
+                                 pcps_bench, pcps_gcorr_bench, pcps_inputs, sweep_lanes,
                                  viterbi_bench)
-from r4w_tpu_torch.fec import convolutional
+from r4w_tpu_torch.fec import convolutional, crc
 from r4w_tpu_torch.gnss import acquisition, inav, scenario, tracking
 from r4w_tpu_torch.gnss import dual_pvt as dual
 from r4w_tpu_torch.gnss import galileo_pvt as gal
@@ -74,8 +87,9 @@ from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
 from r4w_tpu_torch.ops import filters, filters2, resample, stream_math
 from r4w_tpu_torch.profiling import breakdown
-from r4w_tpu_torch.waveforms import lora
-from r4w_tpu_torch.waveforms.lora import chirp
+from r4w_tpu_torch.waveforms import linear_mod, lora
+from r4w_tpu_torch.waveforms import stanag4285 as stanag
+from r4w_tpu_torch.waveforms.lora import chirp, sync
 
 REL_TOL = 1e-4  # max|kernel - plain| / max(plain), the JAX package's own bar
 WATERFALL_BARS_DB = {"sf7": -8.0, "sf8": -12.0, "sf9": -14.0, "sf10": -16.0,
@@ -157,6 +171,17 @@ E1B_TRACK_TOLS = {"code_phase": 0.05, "carrier_freq": 0.1, "dll_disc": 1e-3, "pl
                   "cn0_dbhz": 0.05}
 GLONASS_MIX_TOL = 1e-5                # max|card - CPU| / max|CPU|, float32 phase on both
 MIXDOWN_SAMPLES = 1 << 20
+# The link round trips (phases 24-28): the reference's bars
+PACKET_SFS = tuple(range(7, 13))
+PACKET_CFO_HZ = 400.0                 # tests/test_kernels_sync_arq.py:92, within one bin
+NOISE_SAMPLES = 6000                  # tests/test_kernels_sync_arq.py:104
+BER_GATE_MAX_DEV = 0.10               # docs/PERFORMANCE.md, "<10% deviation from theory"
+WAVEFORM_BER = ("BPSK", -16.0, 256, 24)  # tests/test_ber_theory.py:56-68: within 25%
+WAVEFORM_BER_MAX_DEV = 0.25
+LINEAR_NAMES = ("BPSK", "QPSK", "8-PSK", "16-QAM", "64-QAM", "256-QAM")
+STANAG_BYTES = 256
+STANAG_AWGN = ((2400, 14.0), (1200, 8.0), (600, 5.0), (75, -2.0))  # tests/test_hf_modems.py:95
+HARQ_TRIALS, HARQ_NOISE_STD = 6, 0.95  # tests/test_kernels_sync_arq.py:157-167
 
 
 def phase(name: str, message: str) -> None:
@@ -1046,25 +1071,32 @@ def kernel_counts() -> dict:
             "viterbi_traceback": viterbi.viterbi_traceback.launches}
 
 
-class DecodeShapes:
-    """Records the shape of every I/NAV Viterbi decode (lanes = page parts)
-    while it is entered; the decodes run unchanged."""
+class CallSpy:
+    """Wraps `module.<name>` while entered: records the shape of each call's
+    first argument and the hand-written kernel launches made inside the
+    calls; the calls run unchanged. (The I/NAV decodes: lanes = page parts;
+    STANAG 4285: one lane; the preamble search: window rows.)"""
 
-    def __init__(self):
-        self.shapes = []
+    def __init__(self, module, name: str):
+        self.module, self.name, self.shapes = module, name, []
+        self.launches = dict.fromkeys(kernel_counts(), 0)
 
     def __enter__(self):
-        self.orig = inav.viterbi_decode
+        self.orig = getattr(self.module, self.name)
 
-        def spy(received, *args, **kwargs):
-            self.shapes.append(tuple(received.shape))
-            return self.orig(received, *args, **kwargs)
+        def spy(first, *args, **kwargs):
+            self.shapes.append(tuple(first.shape))
+            before = kernel_counts()
+            out = self.orig(first, *args, **kwargs)
+            for k, v in kernel_counts().items():
+                self.launches[k] += v - before[k]
+            return out
 
-        inav.viterbi_decode = spy
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        inav.viterbi_decode = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
 def check_inav_launches(name: str, counts: dict, decodes: int) -> None:
@@ -1083,7 +1115,7 @@ def drive_galileo_path(dev: torch.device) -> dict:
     60 m, and each channel's pages went through one launch of each Viterbi
     kernel (no other hand-written kernel)."""
     zero_launch_counts()
-    with DecodeShapes() as decodes:
+    with CallSpy(inav, "viterbi_decode") as decodes:
         out = galileo_pvt(dev)
     counts = kernel_counts()
     pages = {r["prn"]: f"{r['pages_crc_ok']}/{r['pages_seen']}" for r in out["per_sv"]}
@@ -1110,7 +1142,7 @@ def drive_dual_path(dev: torch.device) -> dict:
     solved speed under 1 m/s, with one launch of each Viterbi kernel per
     Galileo channel (no other hand-written kernel)."""
     zero_launch_counts()
-    with DecodeShapes() as decodes:
+    with CallSpy(inav, "viterbi_decode") as decodes:
         out = dual_pvt(dev)
     counts = kernel_counts()
     joint, vel = out["joint"] or {}, out["velocity"] or {}
@@ -1298,6 +1330,307 @@ def check_e1b_card_against_cpu(dev: torch.device, gal_run: dict, dual_run: dict)
                              f"{GLONASS_MIX_TOL}")
     phase("23 glonass card vs cpu", f"mixdown of {MIXDOWN_SAMPLES} samples to 6 channels "
           f"(den {den}): max|Δ|/max(CPU) {rel:.3g} <= {GLONASS_MIX_TOL}")
+    return table
+
+
+def noise_capture(dev: torch.device, seed: int = 4) -> torch.Tensor:
+    """`NOISE_SAMPLES` of unit complex Gaussian noise on `dev`, no preamble."""
+    return randn_iq((NOISE_SAMPLES,), torch.Generator(device=dev).manual_seed(seed))
+
+
+def drive_packet_path(dev: torch.device) -> dict:
+    """Phase 24: `lora_packet_roundtrip` at SF7-SF12, each a 255-byte payload
+    behind a 777-sample noise gap: the payload must come back equal with its
+    CRC ok and the frame start within half a symbol of the gap; one SF7
+    capture turned by 400 Hz must give a CFO estimate within one bin; a
+    capture of noise alone must not be detected. The dechirp kernel must run
+    in the preamble search and in the demodulation, and no other kernel."""
+    zero_launch_counts()
+    rows = []
+    with CallSpy(sync, "dechirp_power_dispatch") as search:
+        for sf in PACKET_SFS:
+            n = lora.LoRaParams(sf=sf).samples_per_symbol
+            t0 = time.perf_counter()
+            out = lora_packet_roundtrip(sf, seed=sf, device=dev)
+            torch.cuda.synchronize()
+            rows.append({"sf": sf, "s": time.perf_counter() - t0, "samples": out["samples"],
+                         "frame_start": out["frame_start"], "crc_ok": out["crc_ok"],
+                         "payload_ok": out["payload"] == out["sent"]})
+            if not (out["detected"] and out["payload"] == out["sent"] and out["crc_ok"] is True
+                    and abs(out["frame_start"] - PACKET_GAP_SAMPLES) <= n // 2):
+                raise AssertionError(f"LoRa packet at SF{sf}: {rows[-1]}, cfo {out['cfo_hz']}")
+        cfo = lora_packet_roundtrip(7, cfo_hz=PACKET_CFO_HZ, seed=70, device=dev)
+        bin_hz = lora.LoRaParams(sf=7).bw_hz / lora.LoRaParams(sf=7).chips_per_symbol
+        if not (cfo["detected"] and abs(cfo["cfo_hz"] - PACKET_CFO_HZ) < bin_hz
+                and cfo["payload"] == cfo["sent"] and cfo["crc_ok"] is True):
+            raise AssertionError(f"LoRa packet with a {PACKET_CFO_HZ} Hz CFO: estimate "
+                                 f"{cfo['cfo_hz']} Hz, crc_ok {cfo['crc_ok']}")
+        quiet = sync.detect_preamble(lora.LoRaParams(sf=7), noise_capture(dev))
+        if bool(quiet.detected):
+            raise AssertionError("the preamble search detected a packet in noise alone")
+    counts = kernel_counts()
+    total = counts["dechirp_power"]
+    in_sync = search.launches["dechirp_power"]
+    split = {"sync": in_sync, "demodulation": total - in_sync}
+    others = {k: v for k, v in counts.items() if k != "dechirp_power" and v}
+    if in_sync <= 0 or split["demodulation"] <= 0 or others:
+        raise AssertionError(f"the packet path launched {counts}, split {split}")
+    phase("24 lora packets", f"SF7-SF12 on {dev}: 255-byte payloads behind a "
+          f"{PACKET_GAP_SAMPLES}-sample gap all equal the input with CRC ok: {json.dumps(rows)}")
+    phase("24 lora packets", f"SF7 with a {PACKET_CFO_HZ} Hz CFO: estimate {cfo['cfo_hz']:.4f} Hz "
+          f"(one bin {bin_hz} Hz), frame start {cfo['frame_start']}, payload and CRC ok; "
+          f"{NOISE_SAMPLES} samples of noise alone: not detected")
+    phase("24 launches", f"dechirp_power launched {total} times: {split['sync']} in the "
+          f"preamble search (window rows {sorted(set(search.shapes))}), "
+          f"{split['demodulation']} in the demodulation; no other kernel")
+    return {"launches": split, "window_shapes": set(search.shapes)}
+
+
+def drive_ber_gate(dev: torch.device) -> dict:
+    """Phase 25: `ber_gate()` at 1,000,000 bits a point; every scheme and
+    point within 10% of theory. The waveform-level BPSK check of the
+    reference (-16 dB a sample, 256 bytes × 24 lanes) within 25%, and a
+    round trip of each PSK/QAM waveform on the card equal to the CPU's."""
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate = ber_gate(dev)
+    gate_s = time.perf_counter() - t0
+    rows = [{"scheme": r.scheme, "ebn0_db": r.ebn0_db, "measured": r.measured,
+             "theory": r.theory, "deviation": r.deviation} for r in gate["results"]]
+    bad = [r for r in rows if not r["deviation"] < BER_GATE_MAX_DEV]
+    phase("25 ber gate", f"{len(rows)} points × 1,000,000 bits on {dev} in {gate_s:.6f} s (host "
+          f"clock to a synchronisation): worst deviation {gate['worst_deviation']:.6f}; "
+          f"{json.dumps(rows)}")
+    if bad or not gate["pass"]:
+        raise AssertionError(f"BER gate points outside {BER_GATE_MAX_DEV:.0%} of theory: {bad}")
+    name, snr, n_bytes, lanes = WAVEFORM_BER
+    measured, ebn0 = ber.waveform_ber_monte_carlo(name, snr, n_bytes, lanes, seed=1, device=dev)
+    theory = float(ber.theoretical_ber("bpsk", ebn0, device=dev))
+    dev_wf = abs(measured - theory) / theory
+    phase("25 waveform ber", f"{name} at {snr} dB a sample (Eb/N0 {ebn0:.4f} dB), {n_bytes} bytes "
+          f"× {lanes} lanes: measured {measured:.6f}, theory {theory:.6f}, deviation "
+          f"{dev_wf:.4f}")
+    if not dev_wf < WAVEFORM_BER_MAX_DEV:
+        raise AssertionError(f"waveform BER {measured} against theory {theory}")
+    data = np.random.default_rng(25).integers(0, 256, 512, dtype=np.uint8).tobytes()
+    for wf_name in LINEAR_NAMES:
+        wf = create_waveform(wf_name, 8_000.0, device=dev)
+        tx = wf.modulate(data)
+        rx = awgn(tx, 30.0, generator=torch.Generator(device=dev).manual_seed(25))
+        res = wf.demodulate(rx)
+        cpu = dataclasses.replace(wf, device=torch.device("cpu")).demodulate(rx.cpu())
+        got = bytes(res.bits[: len(data)].cpu().numpy().astype(np.uint8))
+        if not (tx.device.type == dev.type and got == data
+                and torch.equal(res.symbols.cpu(), cpu.symbols)):
+            raise AssertionError(f"{wf_name} round trip on the card: payload ok {got == data}")
+    counts = kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the BER and linear-modem path launched a hand-written kernel: "
+                             f"{counts}")
+    phase("25 linear waveforms", f"{', '.join(LINEAR_NAMES)}: {len(data)}-byte round trips at "
+          f"30 dB on {dev} equal the input, indices equal the CPU's; no hand-written kernel "
+          f"launched in phase 25 (none on this path)")
+    return {"worst_deviation": gate["worst_deviation"], "gate_s": gate_s}
+
+
+def drive_stanag_harq(dev: torch.device) -> dict:
+    """Phase 26: STANAG 4285 at every mode with a 256-byte message (clean),
+    1200 bps with long interleave, and the reference's four AWGN pairs: the
+    bytes must equal the input and the port's CPU result on the same IQ;
+    then `harq_roundtrip_demo` on the card, equal to the CPU's trial for
+    trial. Both Viterbi kernels must run, and no other kernel."""
+    zero_launch_counts()
+    msg = np.random.default_rng(26).integers(0, 256, STANAG_BYTES, dtype=np.uint8).tobytes()
+    cases = [(m, False, None) for m in sorted(stanag.MODES)] + [(1200, True, None)]
+    cases += [(m, False, snr) for m, snr in STANAG_AWGN]
+    lines, steps = [], {}
+    with CallSpy(stanag, "viterbi_decode") as decodes:
+        for mode, long, snr in cases:
+            wf = stanag.Stanag4285(mode_bps=mode, long_interleave=long, device=dev)
+            rx = wf.modulate(msg)
+            if snr is not None:
+                rx = awgn(rx, snr, generator=torch.Generator(device=dev).manual_seed(mode))
+            seen = len(decodes.shapes)
+            t0 = time.perf_counter()
+            res = wf.demodulate(rx)
+            got = bytes(res.bits[:STANAG_BYTES].cpu().numpy().astype(np.uint8))
+            secs = time.perf_counter() - t0
+            label = f"{mode} bps{' long' if long else ''}{'' if snr is None else f' {snr} dB'}"
+            steps.update({label: s[0] // 2 for s in decodes.shapes[seen:]})
+            cpu = dataclasses.replace(wf, device=torch.device("cpu")).demodulate(rx.cpu())
+            if not (rx.device.type == dev.type and got == msg
+                    and torch.equal(res.bits.cpu(), cpu.bits)):
+                raise AssertionError(f"STANAG 4285 {label}: payload ok {got == msg}, equal to "
+                                     f"the CPU {torch.equal(res.bits.cpu(), cpu.bits)}")
+            lines.append(f"{label} {secs:.4f} s")
+    rng, cpu_rng = np.random.default_rng(5), np.random.default_rng(5)
+    trials = []
+    for _ in range(HARQ_TRIALS):
+        bits = rng.integers(0, 2, 96)
+        cpu_bits = cpu_rng.integers(0, 2, 96)
+        trials.append(arq.harq_roundtrip_demo(bits, HARQ_NOISE_STD, rng, device=dev))
+        if trials[-1] != arq.harq_roundtrip_demo(cpu_bits, HARQ_NOISE_STD, cpu_rng, device="cpu"):
+            raise AssertionError(f"HARQ trial {len(trials)} on the card differs from the CPU")
+    wins = sum((b and not a) - 2 * (a and not b) for a, b in trials)
+    if wins < 1:
+        raise AssertionError(f"HARQ showed no incremental-redundancy gain: {trials}")
+    counts = kernel_counts()
+    fwd, tb = counts["viterbi_forward"], counts["viterbi_traceback"]
+    others = {k: v for k, v in counts.items() if not k.startswith("viterbi") and v}
+    if fwd <= 0 or tb <= 0 or others:
+        raise AssertionError(f"the STANAG/HARQ path launched {counts}")
+    phase("26 stanag 4285", f"{STANAG_BYTES}-byte message on {dev}, equal to the input and the "
+          f"CPU: {'; '.join(lines)} (decode wall time to the bytes on the host); trellis steps "
+          f"of each one-lane decode {json.dumps(steps)}")
+    phase("26 harq", f"{HARQ_TRIALS} trials of 96 bits at noise std {HARQ_NOISE_STD} on {dev}: "
+          f"(ok after TX1, ok after combining) {trials}, equal to the CPU's; gain {wins}")
+    phase("26 launches", f"viterbi_forward {fwd}, viterbi_traceback {tb}; {json.dumps(counts)}")
+    return {"launches": fwd, "launches_traceback": tb, "steps": steps}
+
+
+def time_gcorr(dev: torch.device) -> dict:
+    """Phase 27: `pcps_gcorr_bench()` in Gcorr/s, with one iteration's
+    launches and busy time under the profiler."""
+    zero_launch_counts()
+    bench = pcps_gcorr_bench(dev)
+    x, carriers, code_fft = gcorr_inputs(dev)
+    prof = breakdown(lambda: gcorr_step(x, carriers, code_fft)[0])
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the gcorr bench launched a hand-written kernel: {kernel_counts()}")
+    phase("27 pcps gcorr", f"{bench['shape']} (slots × Doppler bins × lags), {bench['nfft']}-point "
+          f"FFTs, {bench['iters']} chained iterations: {bench['gcorr_per_s']:.6f} Gcorr/s, "
+          f"{bench['ms_per_iter']:.6f} ms an iteration, compute_s {bench['compute_s']:.6f}; one "
+          f"iteration: {prof['device_events']} device events, busy {prof['busy_ms']:.6f} ms, "
+          f"idle share {prof['idle_share']:.4f}")
+    return bench
+
+
+def check_link_card_against_cpu(dev: torch.device) -> None:
+    """Phase 28: the slice's functions on the card against the port's CPU
+    results on the same inputs: `crc_compute` for all seven CRCs bit for
+    bit; `dechirp_windows` within 1e-4 of the peak and `detect_preamble`'s
+    decisions equal on the packet captures (SF7-SF12, the CFO capture) and
+    noise alone; `linear_demodulate_symbols` indices equal for six schemes."""
+    data = torch.randint(0, 256, (64, 255), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(28))
+    for name in crc.CRC_PARAMS:
+        got = crc.crc_compute(data.to(dev), name)
+        if not (got.device.type == dev.type
+                and torch.equal(got.cpu(), crc.crc_compute(data, name))):
+            raise AssertionError(f"crc_compute {name}: the card differs from the CPU")
+    phase("28 card vs cpu", f"crc_compute of (64, 255) bytes equal bit for bit for "
+          f"{', '.join(crc.CRC_PARAMS)}")
+    worst, ties = 0.0, []
+    captures = [(sf, 0.0) for sf in PACKET_SFS] + [(7, PACKET_CFO_HZ)]
+    for sf, cfo in captures:
+        params = lora.LoRaParams(sf=sf)
+        payload = np.random.default_rng(sf).integers(0, 256, 255, dtype=np.uint8).tobytes()
+        rx = packet_capture(params, payload, cfo, sf, dev)
+        for x in (rx, noise_capture(dev, sf)):
+            power = sync.dechirp_windows(params, x)[0]
+            want = sync.dechirp_windows(params, x.cpu())[0]
+            worst = max(worst, rel_err(power.cpu(), want)[1])
+            got, ref = sync.detect_preamble(params, x), sync.detect_preamble(params, x.cpu())
+            if sync.candidates_tied(want):
+                ties.append(f"SF{sf}{' CFO' if cfo else ''}")
+            for field in ("detected", "frame_start", "payload_start", "preamble_peak_bin"):
+                if getattr(got, field).item() != getattr(ref, field).item():
+                    raise AssertionError(f"detect_preamble SF{sf}: {field} differs, card "
+                                         f"{got} CPU {ref}")
+            if abs(got.cfo_hz.item() - ref.cfo_hz.item()) >= 1e-3 * params.bw_hz / (1 << sf):
+                raise AssertionError(f"detect_preamble SF{sf}: CFO card {got} CPU {ref}")
+    if not worst < REL_TOL:
+        raise AssertionError(f"dechirp_windows card vs CPU: max|Δ|/max {worst:.3g}")
+    phase("28 card vs cpu", f"dechirp_windows within {worst:.3g} of the peak (< {REL_TOL}) and "
+          f"detect_preamble's decisions (detection, frame and payload start, preamble bin, CFO "
+          f"within 1e-3 of a bin) equal on {len(captures)} packet captures and as many of noise "
+          f"alone; captures whose candidate windows tie within {sync.TIE_REL} (the first of "
+          f"them taken on both devices): {', '.join(ties) or 'none'}")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    for name in LINEAR_NAMES:
+        wf = create_waveform(name, 8_000.0, device=dev)
+        con = wf._tables()[0]
+        tx = wf.modulate(np.random.default_rng(8).integers(0, 256, 4096, dtype=np.uint8))
+        rx = awgn(tx.expand(8, -1), 12.0, generator=gen)
+        idx = linear_mod.linear_demodulate_symbols(rx, con, wf.samples_per_symbol())[0]
+        want = linear_mod.linear_demodulate_symbols(rx.cpu(), con, wf.samples_per_symbol())[0]
+        if not torch.equal(idx.cpu(), want):
+            raise AssertionError(f"linear_demodulate_symbols {name}: indices differ")
+    phase("28 card vs cpu", f"linear_demodulate_symbols indices equal for {', '.join(LINEAR_NAMES)}"
+          f" on 8 lanes of 12 dB IQ")
+
+
+def dechirp_bound(rows: int, k: int) -> tuple[float, str]:
+    """Complex64 rows in, float32 power out; FFT flops 5·K·log2 K + the
+    product and |·|²."""
+    return bound(rows * k * (8 + 4) + 8 * k, rows * k * (5 * math.log2(k) + 9))
+
+
+def time_sync_windows(dev: torch.device, shapes: set) -> dict:
+    """The dechirp kernel at the preamble search's window shape of a 255-byte
+    packet at SF7 and SF12 (the capture's own windows, made contiguous):
+    the kernel, the plain version and cuFFT's transform alone, each the
+    mean of 10 calls queued behind a sleeping stream (device time alone;
+    none of them synchronises), and the bound; the kernel against the
+    plain version within 1e-4."""
+    table = {}
+    for sf in (7, 12):
+        params = lora.LoRaParams(sf=sf)
+        payload = np.random.default_rng(sf).integers(0, 256, 255, dtype=np.uint8).tobytes()
+        x = packet_capture(params, payload, 0.0, sf, dev)
+        n = params.samples_per_symbol
+        wins = x.unfold(-1, n, n // 4).contiguous()
+        down = chirp.base_downchirp(params, dev)
+        if tuple(wins.shape) not in shapes:
+            raise AssertionError(f"SF{sf} windows {tuple(wins.shape)} are not among the "
+                                 f"search's {sorted(shapes)}")
+        got, ref = dechirp_power_cuda(wins, down), dechirp_power(wins, down)
+        abs_err, rel = rel_err(got, ref)
+        if not rel < REL_TOL:
+            raise AssertionError(f"SF{sf} sync windows: max|Δ|/max {rel:.3g}")
+        kern = [queued_ms(lambda: dechirp_power_cuda(wins, down)) for _ in range(2)]
+        plain = [queued_ms(lambda: dechirp_power(wins, down)) for _ in range(2)]
+        mixed = wins * down
+        library = queued_ms(lambda: torch.fft.fft(mixed, dim=-1))
+        b_ms, b_by = dechirp_bound(*wins.shape)
+        table[sf] = {"ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "library_ms": library,
+                     "bound_ms": b_ms, "bound_by": b_by, "shape": list(wins.shape),
+                     "max_abs_err": abs_err}
+        phase("24 timing", f"dechirp_power at the SF{sf} sync windows {tuple(wins.shape)}: kernel "
+              f"{kern[0]:.6f}/{kern[1]:.6f} ms, plain {plain[0]:.6f}/{plain[1]:.6f} ms, "
+              f"cuFFT transform alone {library:.6f} ms (all queued); "
+              f"bound {b_ms:.6f} ms by {b_by}, "
+              f"{100 * b_ms / table[sf]['ms']:.2f}% of it; max|Δ|/max {rel:.3g}")
+    return table
+
+
+def time_stanag_viterbi(steps_by_case: dict) -> dict:
+    """Both Viterbi kernels at STANAG 4285's one-lane T (the 2400 bps
+    decode of the 256-byte message), bit for bit against the plain
+    versions, timed queued (kernel) and with CUDA events (plain, one call)."""
+    constraint, polys = 7, stanag.CONV_POLYS
+    steps = steps_by_case["2400 bps"]
+    bm = noisy_branch_metrics(1, steps, constraint, seed=26, polys=polys)
+    errs = check_viterbi(bm, constraint, polys)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, constraint, polys)
+    table = {}
+    for name, kern_fn, plain_fn, (b_ms, b_by), err, shape in (
+            ("viterbi_forward", lambda: viterbi.viterbi_forward_cuda(bm, constraint, polys),
+             lambda: viterbi.viterbi_forward(bm, constraint, polys),
+             forward_bound(bm, dec, constraint), errs["forward_abs_err"], list(bm.shape)),
+            ("viterbi_traceback", lambda: viterbi.viterbi_traceback_cuda(dec, constraint, polys),
+             lambda: viterbi.viterbi_traceback(dec, constraint, polys),
+             traceback_bounds(dec)[0], errs["traceback_abs_err"], list(dec.shape))):
+        kern = [queued_ms(kern_fn) for _ in range(2)]
+        plain = [cuda_ms(plain_fn, PLAIN_VITERBI_CALLS) for _ in range(2)]
+        table[name] = {"ms_stanag": sum(kern) / 2, "plain_ms_stanag": sum(plain) / 2,
+                       "bound_ms_stanag": b_ms, "bound_by_stanag": b_by,
+                       "max_abs_err_stanag": err, "shape_stanag": shape}
+        phase("26 timing", f"{name} at STANAG 4285's {tuple(shape)} (2400 bps, one lane): kernel "
+              f"{kern[0]:.6f}/{kern[1]:.6f} ms (queued), plain {plain[0]:.4f}/{plain[1]:.4f} ms; "
+              f"bound {b_ms:.3g} ms by {b_by}, {100 * b_ms / table[name]['ms_stanag']:.3g}% of it; "
+              f"bit for bit")
     return table
 
 
@@ -1514,12 +1847,20 @@ def main() -> None:
     drive_glonass_path(dev)
     inav_timing = check_e1b_card_against_cpu(dev, gal_run, dual_run)
 
-    def dechirp_bound(t):  # complex64 rows in, float32 power out; FFT flops
-        k = t["k"]
-        return bound(t["rows"] * k * (8 + 4) + 8 * k, t["rows"] * k * (5 * math.log2(k) + 9))
+    # The link round trips, each path with the counts set to 0 just before it
+    # and read just after: LoRa packets (the dechirp kernel in the preamble
+    # search and the demodulation), the BER gate (no hand-written kernel),
+    # STANAG 4285 and HARQ (both Viterbi kernels), the gcorr bench (none).
+    packet_run = drive_packet_path(dev)
+    sync_timing = time_sync_windows(dev, packet_run["window_shapes"])
+    drive_ber_gate(dev)
+    stanag_run = drive_stanag_harq(dev)
+    stanag_timing = time_stanag_viterbi(stanag_run["steps"])
+    time_gcorr(dev)
+    check_link_card_against_cpu(dev)
 
     t7 = timings[7]
-    bound7, by7 = dechirp_bound(t7)
+    bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
         "name": "dechirp_power",
         "route": "cuda",
@@ -1537,8 +1878,12 @@ def main() -> None:
         "max_rel_err": max(t["rel_err"] for t in timings.values()),
         "ms_sf12": timings[12]["ms"],
         "plain_ms_sf12": timings[12]["plain_ms"],
-        "bound_ms_sf12": dechirp_bound(timings[12])[0],
+        "bound_ms_sf12": dechirp_bound(timings[12]["rows"], timings[12]["k"])[0],
         "library_ms_sf12": timings[12]["library_ms"],
+        "launches_packet_sync": packet_run["launches"]["sync"],
+        "launches_packet_demod": packet_run["launches"]["demodulation"],
+        **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
+           for key, value in row.items()},
     }]
     for name, line, count in (("viterbi_forward", 403, fwd), ("viterbi_traceback", 479, tb)):
         kernels.append({
@@ -1549,6 +1894,9 @@ def main() -> None:
             "launches": count,
             **viterbi_timing[name],
             **inav_timing[name],
+            **stanag_timing[name],
+            "launches_stanag_harq": stanag_run["launches" if name == "viterbi_forward"
+                                               else "launches_traceback"],
             "library_ms": None,
         })
     kernels.append({

@@ -21,8 +21,17 @@ the counterpart of ``bench.py``'s ``bench_dual_pvt``: GPS L1 C/A and
 Galileo E1B receivers on one 24.3 s ten-satellite capture, to a joint fix
 with an inter-system bias. `glonass_track(device)` is the counterpart of
 ``bench.py``'s ``bench_glonass_track``: six GLONASS L1OF FDMA channels
-mixed down exactly, acquired and tracked over 4 s. Every entry point runs
-on the CUDA card unless the caller names another device.
+mixed down exactly, acquired and tracked over 4 s. `ber_gate(device)` is
+the counterpart of ``r4w_tpu.ber.main``: the BER-vs-theory gate of every
+linear scheme and noncoherent BFSK at 1,000,000 bits a point.
+`lora_packet_roundtrip(sf, device)` frames a payload with header and
+CRC, modulates it with its preamble behind a noise gap (and an optional
+CFO), finds it with the preamble search, demodulates and checks it.
+`pcps_gcorr_bench(device)` is the counterpart of ``bench.py``'s
+``bench_pcps_gcorr``: a 50-slot C/A bank × 41 Doppler bins × 1023 lags
+through 4096-point transforms, 1024 chained iterations, in correlations
+per second. Every entry point runs on the CUDA card unless the caller
+names another device.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import math
 import numpy as np
 import torch
 
+from r4w_tpu_torch import ber
 from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
 from r4w_tpu_torch.gnss import acquisition, dual_pvt as dual, galileo_pvt as gal
@@ -40,6 +50,7 @@ from r4w_tpu_torch.gnss import glonass_track as glo, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.parallel import ber_sweep
 from r4w_tpu_torch.waveforms import lora
+from r4w_tpu_torch.waveforms.lora import packet, sync
 
 SWEEP_SNRS_DB = tuple(float(s) for s in np.arange(-26.0, -2.0, 2.0))  # 12 points
 SWEEP_SFS = tuple(range(7, 13))
@@ -59,6 +70,13 @@ PCPS_PRNS, PCPS_RATE_HZ = 8, 2_046_000.0       # 8 C/A codes at 2 samples a chip
 PCPS_CONFIG = acquisition.PcpsConfig(doppler_max_hz=5000.0, doppler_step_hz=250.0,
                                      coherent_periods=2)
 PCPS_CALLS = 16                                # chained calls timed together
+PACKET_PAYLOAD_BYTES = 255                     # the largest the header's length byte describes
+PACKET_GAP_SAMPLES = 777                       # noise before the preamble
+PACKET_GAP_STD = 0.05                          # per component
+GCORR_RATE_HZ, GCORR_LAGS = 1.023e6, 1023      # one C/A period at one sample a chip
+GCORR_SLOTS, GCORR_DOPPLER_BINS = 50, 41       # PRN 1 + p mod 32; ±5 kHz at 250 Hz
+GCORR_DOPPLER_STEP_HZ, GCORR_NFFT = 250.0, 4096
+GCORR_ITERS = 1024                             # chained iterations timed together
 
 
 def entry(device=DEFAULT_DEVICE):
@@ -346,3 +364,129 @@ def pcps_bench(device=DEFAULT_DEVICE, seed: int = 7) -> dict:
     cells = grid.numel()
     return {"mcorr_per_s": cells / ms / 1e3, "ms_per_call": ms, "shape": list(grid.shape),
             "calls": PCPS_CALLS}
+
+
+def ber_gate(device=DEFAULT_DEVICE, n_bits: int = 1_000_000, seed: int = 0) -> dict:
+    """The BER-vs-theory acceptance gate on `device`.
+
+    `ber.DEFAULT_GATE_POINTS` (BPSK, QPSK, 8PSK, 16- and 64-QAM and
+    noncoherent BFSK at two or three Eb/N0 points each), `n_bits` bits a
+    point. Returns ``results`` (every `ber.BerGateResult`),
+    ``worst_deviation`` (the largest |measured − theory| / theory) and
+    ``pass`` (worst deviation under 10%).
+    """
+    results = ber.ber_acceptance_report(ber.DEFAULT_GATE_POINTS, n_bits, seed, device)
+    worst = max(r.deviation for r in results)
+    return {"results": results, "worst_deviation": worst, "pass": worst < 0.10}
+
+
+def packet_capture(params: lora.LoRaParams, payload: bytes, cfo_hz: float = 0.0,
+                   seed: int = 0, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """1-D complex64 capture on `device`: `PACKET_GAP_SAMPLES` of noise of std
+    `PACKET_GAP_STD` a component (from `np.random.default_rng(seed)`), then
+    the packet of `payload` (header, payload, CRC-16) modulated with its
+    preamble, all turned by `cfo_hz`."""
+    device = torch.device(device)
+    frame = packet.build_packet(payload, device=device)
+    tx = lora.modulate(params, frame, include_preamble=True, device=device)
+    rng = np.random.default_rng(seed)
+    gap = PACKET_GAP_STD * (rng.standard_normal(PACKET_GAP_SAMPLES)
+                            + 1j * rng.standard_normal(PACKET_GAP_SAMPLES))
+    rx = torch.cat([torch.from_numpy(gap.astype(np.complex64)).to(device), tx])
+    if cfo_hz:
+        t = torch.arange(rx.shape[-1], dtype=torch.float64, device=device) / params.sample_rate
+        turn = torch.polar(torch.ones_like(t), 2.0 * math.pi * cfo_hz * t)
+        rx = (rx.to(torch.complex128) * turn).to(IQ_DTYPE)
+    return rx
+
+
+def lora_packet_roundtrip(sf: int = 7, cfo_hz: float = 0.0, seed: int = 0,
+                          device=DEFAULT_DEVICE) -> dict:
+    """One LoRa packet through a capture and back, on `device`.
+
+    `PACKET_PAYLOAD_BYTES` random bytes from `np.random.default_rng(seed)`
+    are framed by `packet.build_packet`, modulated with their preamble
+    behind a noise gap (`packet_capture`), found and CFO-corrected by
+    `sync.synchronize`, demodulated and parsed. Returns ``sent``,
+    ``payload`` (b'' when nothing is found), ``crc_ok``, ``detected``,
+    ``frame_start``, ``gap``, ``cfo_hz`` (the estimate), ``cfo_true_hz``
+    and ``samples``.
+    """
+    device = torch.device(device)
+    params = lora.LoRaParams(sf=sf)
+    payload = np.random.default_rng(seed).integers(0, 256, PACKET_PAYLOAD_BYTES,
+                                                   dtype=np.uint8).tobytes()
+    rx = packet_capture(params, payload, cfo_hz, seed, device)
+    aligned, res = sync.synchronize(params, rx)
+    got, crc_ok = b"", None
+    if aligned is not None:
+        out = lora.demodulate(params, aligned)
+        got, crc_ok = packet.parse_packet(out.payload.cpu().numpy(), device=device)
+    return {"sent": payload, "payload": got, "crc_ok": crc_ok, "detected": bool(res.detected),
+            "frame_start": int(res.frame_start), "gap": PACKET_GAP_SAMPLES,
+            "cfo_hz": float(res.cfo_hz), "cfo_true_hz": cfo_hz, "samples": rx.shape[-1]}
+
+
+def gcorr_inputs(device=DEFAULT_DEVICE, seed: int = 0):
+    """(x, carriers, code_fft) of `pcps_gcorr_bench` on `device`: two C/A
+    periods of unit-variance noise a component from
+    `np.random.default_rng(seed)` (2046,) complex64; the Doppler wipe-offs
+    e^{-j2π·f·t} (41, 2046), float32 phase; the conjugate 4096-point
+    transforms of the 50-slot bank of C/A codes, PRN 1 + p mod 32 (50, 4096)."""
+    device = torch.device(device)
+    n = 2 * GCORR_LAGS
+    rng = np.random.default_rng(seed)
+    re = rng.standard_normal((n,), dtype=np.float32)
+    im = rng.standard_normal((n,), dtype=np.float32)
+    x = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+    dops = (torch.arange(GCORR_DOPPLER_BINS, dtype=REAL_DTYPE, device=device)
+            * GCORR_DOPPLER_STEP_HZ - GCORR_DOPPLER_BINS // 2 * GCORR_DOPPLER_STEP_HZ)
+    t = (torch.arange(n, dtype=REAL_DTYPE, device=device)
+         / torch.full((), GCORR_RATE_HZ, dtype=REAL_DTYPE, device=device))
+    ang = -2.0 * math.pi * dops[:, None] * t[None, :]
+    carriers = torch.complex(torch.cos(ang), torch.sin(ang))
+    codes = np.stack([prn.gps_ca_code(1 + p % 32) for p in range(GCORR_SLOTS)]).astype(np.float32)
+    code_fft = torch.conj(torch.fft.fft(torch.from_numpy(codes).to(device).to(IQ_DTYPE),
+                                        GCORR_NFFT, dim=-1)).resolve_conj()
+    return x, carriers, code_fft
+
+
+def gcorr_step(x: torch.Tensor, carriers: torch.Tensor, code_fft: torch.Tensor):
+    """One iteration of `pcps_gcorr_bench`: the (50, 41, 1023) correlation
+    power of `x` against every code and Doppler bin, and the next `x`,
+    x·(1 + 1e-12·peak), which chains the iterations on the surface."""
+    mf = torch.fft.fft(x[None, :] * carriers, GCORR_NFFT, dim=-1)
+    surf = torch.fft.ifft(mf[None] * code_fft[:, None, :], dim=-1)[..., :GCORR_LAGS]
+    power = surf.real ** 2 + surf.imag ** 2
+    return x * (1.0 + 1e-12 * torch.amax(power)), power
+
+
+def pcps_gcorr_bench(device=DEFAULT_DEVICE, iters: int = GCORR_ITERS, seed: int = 0) -> dict:
+    """Big-grid PCPS throughput: a 50-slot C/A bank (the 32 distinct codes,
+    18 repeated) × 41 Doppler bins × 1023 lags, 4096-point transforms.
+
+    One warm-up iteration, then `iters` iterations chained through x, issued
+    from a Python loop of cuFFT calls with no host synchronisation inside
+    and timed with CUDA events. Returns ``gcorr_per_s`` (slots × bins × lags
+    × iters per second, in billions), ``compute_s``, ``ms_per_iter``,
+    ``energy`` (Σ|x|² at the end, finite) and the grid's shape.
+    """
+    device = torch.device(device)
+    _require_cuda("pcps_gcorr_bench", device)
+    x, carriers, code_fft = gcorr_inputs(device, seed)
+    gcorr_step(x, carriers, code_fft)  # warm-up: plans the transforms
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        x, _ = gcorr_step(x, carriers, code_fft)
+    end.record()
+    end.synchronize()
+    compute_s = start.elapsed_time(end) / 1e3
+    energy = float(torch.sum(x.real ** 2 + x.imag ** 2))
+    if not math.isfinite(energy):
+        raise AssertionError(f"pcps_gcorr_bench: x is not finite after {iters} iterations")
+    cells = GCORR_SLOTS * GCORR_DOPPLER_BINS * GCORR_LAGS * iters
+    return {"gcorr_per_s": cells / compute_s / 1e9, "compute_s": compute_s,
+            "ms_per_iter": 1e3 * compute_s / iters, "energy": energy, "iters": iters,
+            "shape": [GCORR_SLOTS, GCORR_DOPPLER_BINS, GCORR_LAGS], "nfft": GCORR_NFFT}

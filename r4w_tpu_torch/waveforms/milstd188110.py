@@ -165,11 +165,13 @@ def _carrier(n: int, sample_rate: float, device: torch.device) -> torch.Tensor:
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """Linear interpolation of (xp, fp) at x, xp increasing, as ``jnp.interp``:
     fp[i-1] + (x - xp[i-1]) / (xp[i] - xp[i-1]) · (fp[i] - fp[i-1]) between
-    anchors, fp[0] below the first and fp[-1] above the last."""
+    anchors, fp[0] below the first and fp[-1] above the last. `fp` may have
+    leading axes (..., A): each row is interpolated, as a vmap of the
+    reference's would."""
     i = torch.searchsorted(xp, x, right=True).clamp(1, xp.shape[0] - 1)
-    f = fp[i - 1] + (x - xp[i - 1]) / (xp[i] - xp[i - 1]) * (fp[i] - fp[i - 1])
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    f = fp[..., i - 1] + (x - xp[i - 1]) / (xp[i] - xp[i - 1]) * (fp[..., i] - fp[..., i - 1])
+    f = torch.where(x < xp[0], fp[..., :1], f)
+    return torch.where(x > xp[-1], fp[..., -1:], f)
 
 
 @dataclasses.dataclass(frozen=True)

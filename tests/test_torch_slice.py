@@ -24,9 +24,11 @@ from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import types
-from r4w_tpu_torch.entry import (ddc_bench, dual_pvt, entry, galileo_pvt, glonass_track,
-                                 gps_pvt_fix, lora_sweep, pcps_bench, sweep_lanes, viterbi_bench,
-                                 waterfall_snr_db)
+from r4w_tpu_torch import arq, ber
+from r4w_tpu_torch.entry import (ber_gate, ddc_bench, dual_pvt, entry, galileo_pvt,
+                                 glonass_track, gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
+                                 packet_capture, pcps_bench, pcps_gcorr_bench, sweep_lanes,
+                                 viterbi_bench, waterfall_snr_db)
 from r4w_tpu_torch.gnss import GnssScenario, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, init_state, inav
 from r4w_tpu_torch.gnss.gps_pvt_fix import main_code_phase, main_decoded
@@ -73,12 +75,14 @@ def test_quick_start_roundtrip():
 
 def test_factory_names_aliases_and_unknowns():
     assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12", "MIL-STD-188-110", "GPS-L1CA",
-                                "GPS-L5", "GLONASS-L1OF", "Galileo-E1"]
+                                "GPS-L5", "GLONASS-L1OF", "Galileo-E1", "BPSK", "QPSK", "8-PSK",
+                                "16-QAM", "64-QAM", "256-QAM", "STANAG-4285"]
     assert WaveformFactory.list() == list_waveforms()
     assert WaveformFactory.create("css").params.sf == 7
     assert create_waveform("lora_sf12").params.sf == 12
     assert create_waveform("LoRa", device="cpu").device == torch.device("cpu")
-    assert create_waveform("QPSK") is None
+    assert create_waveform("QPSK").info().name == "QPSK"
+    assert create_waveform("FSK") is None
     assert create_waveform("GPS-L1CA-PRN5", device="cpu").prn == 5
     assert create_waveform("GPS-L1CA-PRN33") is None
 
@@ -145,14 +149,20 @@ def test_entry_points_default_to_the_card():
     to CUDA, and None resolves to it with no fallback to the CPU."""
     cuda = torch.device("cuda")
     for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate,
-               gps_pvt_fix, pcps_bench, galileo_pvt, dual_pvt, glonass_track):
+               gps_pvt_fix, pcps_bench, galileo_pvt, dual_pvt, glonass_track, ber_gate,
+               lora_packet_roundtrip, packet_capture, pcps_gcorr_bench):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
     for fn in (GnssScenario, init_state, main_decoded, main_code_phase, gal.main, dual.main,
                glo.main, gal.decode_sv_channel, inav.decode_stream, inav.decode_part,
-               inav.decode_page):  # None: DEFAULT_DEVICE
+               inav.decode_page, ber.linear_ber_monte_carlo, ber.waveform_ber_monte_carlo,
+               ber.ber_acceptance_report, arq.HarqSender, arq.HarqReceiver,
+               arq.harq_roundtrip_demo):  # None: DEFAULT_DEVICE
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
+    assert arq.HarqSender().device == cuda and arq.HarqReceiver().device == cuda
+    for name in ("BPSK", "64-QAM", "STANAG-4285"):
+        assert create_waveform(name).device == cuda
     assert types.resolve_device(None) == cuda and types.resolve_device("cpu").type == "cpu"
     assert types.to_tensor(torch.ones(2)).device.type == "cpu"  # a tensor keeps its device
 
@@ -174,6 +184,11 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.gnss.galileo_pvt, r4w_tpu_torch.gnss.glonass_track\n"
             "import r4w_tpu_torch.gnss.dual_pvt\n"
             "import r4w_tpu_torch.waveforms.gnss_waveforms\n"
+            "import r4w_tpu_torch.fec.crc, r4w_tpu_torch.core.fftops, r4w_tpu_torch.ops.measure\n"
+            "import r4w_tpu_torch.waveforms.lora.packet, r4w_tpu_torch.waveforms.lora.sync\n"
+            "import r4w_tpu_torch.waveforms.linear_mod, r4w_tpu_torch.waveforms.psk\n"
+            "import r4w_tpu_torch.waveforms.qam, r4w_tpu_torch.waveforms.stanag4285\n"
+            "import r4w_tpu_torch.ber, r4w_tpu_torch.arq\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
             "print(bad)\n"
