@@ -42,7 +42,19 @@ and the six PSK/QAM waveforms (no hand-written kernel); phase 26 STANAG
 one-lane decodes launch both Viterbi kernels, timed at STANAG's T; phase
 27 ``pcps_gcorr_bench()`` in Gcorr/s; phase 28 the CRCs, the sync windows
 and decisions and the linear demodulator on the card against the port's
-CPU results. Each phase prints at least one line; a failed phase raises,
+CPU results. Then the waveform fleet, each path with the counts set to 0
+before it and read after: phase 29 ``device_sweep()`` (all 50 factory
+names through modulate -> host -> demodulate at 48 kHz: 50/50, the bytes
+back for the reference's 40 names, each name's decisions equal to the
+port's CPU demodulation of the same host IQ, per-name warm times, the
+dechirp and Viterbi launches of the LoRa, MIL-STD-188-110 and STANAG
+names); phase 30 ``fleet_noisy_gate()`` (every name through AWGN on the
+reference's own noise: digital names bit-exact, the CW, analog, FMCW and
+beacon bars); phase 31 ``sincgars_data_roundtrip()`` (2,048 bytes in 29
+coded frames over the SINCGARS hop PHY at 10 dB: 29/29 with their CRC,
+one launch of each Viterbi kernel, both kernels bit for bit against their
+plain versions at the decode's bm (638, 4, 29) and timed there). Each
+phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -69,11 +81,13 @@ from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import windows
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
                                  DDC_STREAMS, PACKET_GAP_SAMPLES, PCPS_CONFIG, PCPS_RATE_HZ,
-                                 SWEEP_PAYLOAD_BYTES, SWEEP_SNRS_DB, VITERBI_INFO_BITS,
-                                 VITERBI_LANES, ber_gate, ddc_bench, ddc_signal, dual_pvt, entry,
+                                 SWEEP_PAYLOAD_BYTES, SWEEP_RATE_HZ, SWEEP_SNRS_DB,
+                                 VITERBI_INFO_BITS, VITERBI_LANES, ber_gate, ddc_bench,
+                                 ddc_signal, device_sweep, dual_pvt, entry, fleet_noisy_gate,
                                  galileo_pvt, gcorr_inputs, gcorr_step, glonass_track,
-                                 gps_pvt_fix, lora_packet_roundtrip, lora_sweep, packet_capture,
-                                 pcps_bench, pcps_gcorr_bench, pcps_inputs, sweep_lanes,
+                                 gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
+                                 noisy_pass_rates, packet_capture, pcps_bench, pcps_gcorr_bench,
+                                 pcps_inputs, sincgars_data_roundtrip, sweep_lanes, sweep_round,
                                  viterbi_bench)
 from r4w_tpu_torch.fec import convolutional, crc
 from r4w_tpu_torch.gnss import acquisition, inav, scenario, tracking
@@ -87,7 +101,8 @@ from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
 from r4w_tpu_torch.ops import filters, filters2, resample, stream_math
 from r4w_tpu_torch.profiling import breakdown
-from r4w_tpu_torch.waveforms import linear_mod, lora
+from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
+from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
 from r4w_tpu_torch.waveforms.lora import chirp, sync
 
@@ -182,6 +197,15 @@ LINEAR_NAMES = ("BPSK", "QPSK", "8-PSK", "16-QAM", "64-QAM", "256-QAM")
 STANAG_BYTES = 256
 STANAG_AWGN = ((2400, 14.0), (1200, 8.0), (600, 5.0), (75, -2.0))  # tests/test_hf_modems.py:95
 HARQ_TRIALS, HARQ_NOISE_STD = 6, 0.95  # tests/test_kernels_sync_arq.py:157-167
+# The waveform fleet (phases 29-31)
+FLEET_SIZE = 50
+# names whose bytes the reference's probe does not get back at 48 kHz
+SWEEP_NO_BYTES = {"CW", "ADS-B", "AM-Broadcast", "FM-Broadcast", "NBFM", "FMCW", "ELT-121.5",
+                  "EPIRB-121.5", "PLB-121.5", "Beacon-243"}
+# analog bytes truncate float32 audio that lands within an ulp of an integer:
+# card and CPU may truncate one code apart (tests/torch_fleet_parity.py)
+ANALOG_NAMES, ANALOG_CODE_TOL = ("AM-Broadcast", "FM-Broadcast", "NBFM"), 1
+SINCGARS_FRAMES, SINCGARS_FRAME_BITS = 29, 1276  # 2,048 bytes at 1200 bps, 71-byte payloads
 
 
 def phase(name: str, message: str) -> None:
@@ -1073,12 +1097,13 @@ def kernel_counts() -> dict:
 
 class CallSpy:
     """Wraps `module.<name>` while entered: records the shape of each call's
-    first argument and the hand-written kernel launches made inside the
-    calls; the calls run unchanged. (The I/NAV decodes: lanes = page parts;
-    STANAG 4285: one lane; the preamble search: window rows.)"""
+    first argument (with `keep`, the argument too) and the hand-written
+    kernel launches made inside the calls; the calls run unchanged. (The
+    I/NAV decodes: lanes = page parts; STANAG 4285: one lane; the preamble
+    search: window rows; SINCGARS data: lanes = frames.)"""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.shapes = module, name, []
+    def __init__(self, module, name: str, keep: bool = False):
+        self.module, self.name, self.shapes, self.firsts, self.keep = module, name, [], [], keep
         self.launches = dict.fromkeys(kernel_counts(), 0)
 
     def __enter__(self):
@@ -1086,6 +1111,8 @@ class CallSpy:
 
         def spy(first, *args, **kwargs):
             self.shapes.append(tuple(first.shape))
+            if self.keep:
+                self.firsts.append(first)
             before = kernel_counts()
             out = self.orig(first, *args, **kwargs)
             for k, v in kernel_counts().items():
@@ -1634,6 +1661,155 @@ def time_stanag_viterbi(steps_by_case: dict) -> dict:
     return table
 
 
+
+def decisions_equal(name: str, card, cpu) -> bool:
+    """A name's card decisions against the CPU's: bits and symbols equal
+    (analog audio bytes within ANALOG_CODE_TOL codes, symbols empty)."""
+    if name in ANALOG_NAMES:
+        diff = (card.bits.cpu() - cpu.bits + 128) % 256 - 128
+        return (card.bits.shape == cpu.bits.shape
+                and bool(torch.all(torch.abs(diff) <= ANALOG_CODE_TOL)))
+    return torch.equal(card.bits.cpu(), cpu.bits) and torch.equal(card.symbols.cpu(), cpu.symbols)
+
+
+def drive_device_sweep(dev: torch.device) -> dict:
+    """Phase 29: `device_sweep()` on the card with the counts set to 0 just
+    before it and read just after: 50/50 ok, the bytes back for every name
+    whose bytes the reference gets back, the dechirp kernel launched by the
+    three LoRa names and both Viterbi kernels by MIL-STD-188-110 and STANAG
+    4285. Then each name's round once more on the card, its decisions
+    against the port's CPU demodulation of the same host IQ."""
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    sweep = device_sweep(dev)
+    counts = kernel_counts()
+    names = list_waveforms()
+    missing = sorted(n for n in names if n not in SWEEP_NO_BYTES and not sweep["bytes_back"].get(n))
+    if (sweep["ok"], sweep["total"], sweep["failures"], missing) != (FLEET_SIZE, FLEET_SIZE,
+                                                                      [], []):
+        raise AssertionError(f"device sweep {sweep['ok']}/{sweep['total']}, failures "
+                             f"{sweep['failures']}, bytes missing for {missing}")
+    if counts["dechirp_power"] <= 0 or counts["viterbi_forward"] <= 0 \
+            or counts["viterbi_traceback"] <= 0:
+        raise AssertionError(f"the device sweep launched {counts}")
+    differ = []
+    for name in names:
+        iq, res = sweep_round(name, dev)
+        cpu = create_waveform(name, SWEEP_RATE_HZ, "cpu").demodulate(torch.from_numpy(iq))
+        if res.bits.device.type != dev.type or not decisions_equal(name, res, cpu):
+            differ.append(name)
+    if differ:
+        raise AssertionError(f"card decisions differ from the CPU's for {differ}")
+    secs = time.perf_counter() - t0
+    back = sum(sweep["bytes_back"].values())
+    phase("29 device sweep", f"{sweep['ok']}/{sweep['total']} ok on {dev}, bytes back for "
+          f"{back} names (all the reference's {FLEET_SIZE - len(SWEEP_NO_BYTES)}); decisions "
+          f"of all {len(names)} equal the CPU's on the same host IQ (analog bytes within "
+          f"{ANALOG_CODE_TOL} code); launches {json.dumps(counts)}; phase {secs:.3f} s")
+    phase("29 warm ms", json.dumps({n: round(v, 4) for n, v in sweep["warm_ms"].items()}))
+    return {"launches": counts, "seconds": secs, "warm_ms": sweep["warm_ms"]}
+
+
+def drive_noisy_gate(dev: torch.device) -> dict:
+    """Phase 30: `fleet_noisy_gate()` on the card, every bar: the digital
+    names bit-exact at their SNRs, CW, analog, FMCW and beacon bars, the
+    matrix covering the factory exactly."""
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    gate = fleet_noisy_gate(dev)
+    counts = kernel_counts()
+    if not gate["ok"]:
+        raise AssertionError(f"noisy gate: covered {gate['covered']}, failures "
+                             f"{ {n: gate['results'][n] for n in gate['failures']} }")
+    res = gate["results"]
+    secs = time.perf_counter() - t0
+    digital = sum(1 for n in res if n not in ("CW", "FMCW") and "bytes" in res[n])
+    phase("30 noisy gate", f"{len(res)} names on {dev}: {digital} digital names bit-exact at "
+          f"their SNRs; CW {res['CW']['frequency_hz']:.4f} Hz; AM/FM/NBFM mean |err| "
+          + "/".join(f"{res[n]['mean_abs_err']:.3f}" for n in ANALOG_NAMES)
+          + f"; FMCW {res['FMCW']['range_m']:.3f} m (bin {res['FMCW']['range_bin_m']:.3f} m); "
+          f"beacon sweeps " + ", ".join(
+              f"{n} {res[n]['audio_freq_min']:.0f}-{res[n]['audio_freq_max']:.0f} Hz"
+              for n in ("ELT-121.5", "EPIRB-121.5", "PLB-121.5", "Beacon-243"))
+          + f"; launches {json.dumps(counts)}; phase {secs:.3f} s")
+    # How thin the matrix's SNRs are under the card's own noise (not a gate):
+    # the reference passes on its key 3; other draws fail some names.
+    t0 = time.perf_counter()
+    rates = noisy_pass_rates(dev)
+    thin = {n: r for n, r in rates.items() if r < 1.0}
+    phase("30 pass rates", f"share of 40 Philox draws (seeds 0-39) passing each bar at the "
+          f"matrix's SNR: {len(rates) - len(thin)} of {len(rates)} names pass every draw; "
+          f"below 1: {json.dumps(thin)}; {time.perf_counter() - t0:.3f} s")
+    return {"launches": counts, "seconds": secs, "pass_rates": rates}
+
+
+def drive_sincgars_data(dev: torch.device) -> dict:
+    """Phase 31: `sincgars_data_roundtrip()` on the card (2,048 bytes at
+    1200 bps, 10 dB): 29/29 frames with their CRC good, sequences 0-28, the
+    payload equal, and exactly one launch of each Viterbi kernel (the 29
+    frames are lanes of one decode) and no other kernel. Then both kernels
+    against their plain versions, bit for bit, on the decode's own branch
+    metrics, bm (638, 4, 29), and timed there."""
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    with CallSpy(milfh, "viterbi_decode", keep=True) as decodes:
+        out = sincgars_data_roundtrip(dev)
+    counts = kernel_counts()
+    want = {"dechirp_power": 0, "fir_decimate": 0, "nco_mix": 0, "viterbi_forward": 1,
+            "viterbi_traceback": 1}
+    if not (out["frames"] == out["crc_ok"] == SINCGARS_FRAMES and out["payload_equal"]
+            and out["sequences"] == list(range(SINCGARS_FRAMES)) and counts == want
+            and out["launches"] == {"viterbi_forward": 1, "viterbi_traceback": 1}
+            and decodes.shapes == [(SINCGARS_FRAMES, SINCGARS_FRAME_BITS)]):
+        raise AssertionError(f"SINCGARS data: {out['crc_ok']}/{out['frames']} frames, payload "
+                             f"equal {out['payload_equal']}, sequences {out['sequences']}, "
+                             f"launches {counts}, decode calls {decodes.shapes}")
+    secs = time.perf_counter() - t0
+    phase("31 sincgars data", f"{out['frames']} frames of {out['frame_bits']} coded bits, "
+          f"{out['samples']} samples on {dev}: {out['crc_ok']}/{out['frames']} CRC ok, sequences "
+          f"0-{out['sequences'][-1]}, payload equal; demodulate + deframe {out['decode_s']:.6f} s "
+          f"(host clock); launches {json.dumps(counts)}; phase {secs:.3f} s")
+
+    constraint, polys = 7, milfh.CONV_POLYS
+    lanes = decodes.firsts[0]
+    rx = (1.0 - 2.0 * lanes.to(torch.float32)).reshape(lanes.shape[0], -1, len(polys))
+    bm = convolutional._branch_metrics(rx)
+    errs = check_viterbi(bm, constraint, polys)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, constraint, polys)
+    n = bm.shape[2]
+    table = {}
+    for name, kern_fn, plain_fn, (b_ms, b_by), err, shape in (
+            ("viterbi_forward", lambda: viterbi.viterbi_forward_cuda(bm, constraint, polys),
+             lambda: viterbi.viterbi_forward(bm, constraint, polys),
+             forward_bound(bm, dec, constraint), errs["forward_abs_err"], list(bm.shape)),
+            ("viterbi_traceback", lambda: viterbi.viterbi_traceback_cuda(dec, constraint, polys),
+             lambda: viterbi.viterbi_traceback(dec, constraint, polys),
+             traceback_bounds(dec)[0], errs["traceback_abs_err"], list(dec.shape))):
+        kern = [queued_ms(kern_fn) for _ in range(2)]
+        plain = [cuda_ms(plain_fn, PLAIN_VITERBI_CALLS) for _ in range(2)]
+        table[name] = {"ms_sincgars": sum(kern) / 2, "plain_ms_sincgars": sum(plain) / 2,
+                       "bound_ms_sincgars": b_ms, "bound_by_sincgars": b_by,
+                       "max_abs_err_sincgars": err, "shape_sincgars": shape,
+                       "launches_sincgars": counts[name]}
+        staging = (f"; lanes % 4 = {n % 4}: the traceback stages by 4-byte copies"
+                   if name == "viterbi_traceback" and n % 4 else "")
+        phase("31 timing", f"{name} at SINCGARS data's {tuple(shape)}: kernel {kern[0]:.6f}/"
+              f"{kern[1]:.6f} ms (queued), plain {plain[0]:.4f}/{plain[1]:.4f} ms; bound "
+              f"{b_ms:.3g} ms by {b_by}, {100 * b_ms / table[name]['ms_sincgars']:.3g}% of it; "
+              f"bit for bit{staging}")
+    if n % 4:
+        # the same decisions with the lanes padded to a multiple of 4: the 16-byte staging path
+        padded = F.pad(dec, (0, -n % 4))
+        if not torch.equal(viterbi.viterbi_traceback_cuda(padded, constraint, polys)[:, :n],
+                           viterbi.viterbi_traceback(dec, constraint, polys)):
+            raise AssertionError("traceback on lane-padded decisions differs from plain")
+        padded_ms = queued_ms(lambda: viterbi.viterbi_traceback_cuda(padded, constraint, polys))
+        table["viterbi_traceback"]["ms_sincgars_lanes_padded"] = padded_ms
+        phase("31 timing", f"viterbi_traceback at {tuple(padded.shape)}, the decisions padded to "
+              f"a multiple of 4 lanes (16-byte staging): {padded_ms:.6f} ms (queued), its first "
+              f"{n} lanes' bits equal")
+    return table
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1859,6 +2035,14 @@ def main() -> None:
     time_gcorr(dev)
     check_link_card_against_cpu(dev)
 
+    # The waveform fleet, each path with the counts set to 0 just before it and
+    # read just after: the device sweep (the dechirp kernel in the LoRa names,
+    # both Viterbi kernels in MIL-STD-188-110 and STANAG 4285), the noisy
+    # gate, and SINCGARS data (both Viterbi kernels once, 29 frames as lanes).
+    sweep_run = drive_device_sweep(dev)
+    gate_run = drive_noisy_gate(dev)
+    sincgars_timing = drive_sincgars_data(dev)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -1882,6 +2066,8 @@ def main() -> None:
         "library_ms_sf12": timings[12]["library_ms"],
         "launches_packet_sync": packet_run["launches"]["sync"],
         "launches_packet_demod": packet_run["launches"]["demodulation"],
+        "launches_fleet_sweep": sweep_run["launches"]["dechirp_power"],
+        "launches_noisy_gate": gate_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -1897,6 +2083,9 @@ def main() -> None:
             **stanag_timing[name],
             "launches_stanag_harq": stanag_run["launches" if name == "viterbi_forward"
                                                else "launches_traceback"],
+            **sincgars_timing[name],
+            "launches_fleet_sweep": sweep_run["launches"][name],
+            "launches_noisy_gate": gate_run["launches"][name],
             "library_ms": None,
         })
     kernels.append({

@@ -12,7 +12,10 @@ path (`fec.convolutional`, MIL-STD-188-110) and its two kernels
 (`kernels.viterbi`); the digital down-converter path (`ops.filters`,
 `ops.resample`, `ops.stream_math`, `ops.filters2`) and its two kernels,
 the FIR with decimation (`kernels.fir`) and the oscillator mix
-(`kernels.nco`).
+(`kernels.nco`); the GPS, Galileo and GLONASS receivers (`gnss`); the
+link round trips (LoRa packets, PSK/QAM, the BER gate, STANAG 4285,
+ARQ/HARQ); and the whole waveform fleet, the 50 names of the reference's
+factory (`waveforms`).
 """
 
 __version__ = "0.1.0"

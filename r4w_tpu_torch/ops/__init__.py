@@ -1,4 +1,5 @@
 """DSP ops ported so far: the LoRa coding chain (`coding`), soft demapping
-(`modem`), LFSR sequences (`spreading`), the FIR family and designs
-(`filters`), polyphase resampling (`resample`), the DDC and VCO
-(`stream_math`) and the DUC (`filters2`)."""
+(`modem`), the spreading-code generators (`spreading`), the FIR family
+and designs (`filters`), polyphase resampling (`resample`), the DDC and
+VCO (`stream_math`), the DUC (`filters2`), the BER half of `measure`, and
+OFDM channel estimation and equalisation (`ofdm`)."""

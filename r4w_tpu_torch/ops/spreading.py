@@ -1,14 +1,44 @@
-"""Spreading-code generators.
+"""Spreading-code generators: LFSR/m-sequence, Gold, Barker, Zadoff-Chu.
 
-PyTorch counterpart of ``r4w_tpu.ops.spreading``; so far only the
-Fibonacci LFSR, which builds the MIL-STD-188-110 preamble and scrambler
-tables. Codes are tiny and static, so they are numpy arrays built once on
-the host; callers move them to a device as constants.
+PyTorch counterpart of ``r4w_tpu.ops.spreading``: the code generators,
+copied bit for bit. Codes are tiny and static, so they are numpy arrays
+built once on the host; callers move them to a device as constants.
+Chips use the BPSK mapping bit 0 -> +1, bit 1 -> -1. The RAKE receiver
+(``rake_search``, ``rake_despread``, ``rake_combine``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+
+# Preferred m-sequence polynomial pairs for Gold codes (lfsr.rs:157-165)
+GOLD_PREFERRED_PAIRS = {
+    5: (0x12, 0x1E),
+    6: (0x21, 0x33),
+    7: (0x41, 0x47),
+    8: (0x8E, 0xAE),
+    9: (0x108, 0x130),
+    10: (0x204, 0x327),
+}
+
+# Default m-sequence polynomials by degree (lfsr.rs:113-124)
+MSEQ_POLY = {
+    3: 0x05, 4: 0x09, 5: 0x12, 6: 0x21, 7: 0x41, 8: 0x8E, 9: 0x108,
+    10: 0x204,
+}
+
+# All known Barker codes (barker.rs:36-55)
+BARKER_CODES = {
+    2: [1, -1],
+    3: [1, 1, -1],
+    4: [1, 1, -1, 1],
+    5: [1, 1, 1, -1, 1],
+    7: [1, 1, 1, -1, -1, 1, -1],
+    11: [1, 1, 1, -1, -1, -1, 1, -1, -1, 1, -1],
+    13: [1, 1, 1, 1, 1, -1, -1, 1, 1, -1, 1, -1, 1],
+}
 
 
 def lfsr_bits(degree: int, polynomial: int, initial_state: int = 0x01,
@@ -24,3 +54,69 @@ def lfsr_bits(degree: int, polynomial: int, initial_state: int = 0x01,
         fb = bin(state & polynomial).count("1") & 1
         state = ((state << 1) | fb) & mask
     return out
+
+
+def _bits_to_chips(bits: np.ndarray) -> np.ndarray:
+    return np.where(bits == 0, 1, -1).astype(np.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def m_sequence(degree: int, polynomial: int | None = None,
+               initial_state: int = 0x01) -> np.ndarray:
+    """Full-period m-sequence as ±1 chips, length 2^degree - 1."""
+    poly = polynomial if polynomial is not None else MSEQ_POLY[degree]
+    return _bits_to_chips(lfsr_bits(degree, poly, initial_state))
+
+
+@functools.lru_cache(maxsize=None)
+def gold_code(degree: int, index: int) -> np.ndarray:
+    """Gold code family member as ±1 chips (gold.rs:131-163).
+
+    index 0 -> m-seq A, 1 -> m-seq B, k>=2 -> A xor roll(B, -(k-2)).
+    Family size 2^degree + 1.
+    """
+    poly_a, poly_b = GOLD_PREFERRED_PAIRS[degree]
+    a = lfsr_bits(degree, poly_a)
+    b = lfsr_bits(degree, poly_b)
+    n = len(a)
+    index = index % (n + 2)
+    if index == 0:
+        return _bits_to_chips(a)
+    if index == 1:
+        return _bits_to_chips(b)
+    return _bits_to_chips(a ^ np.roll(b, -(index - 2)))
+
+
+def gold_family(degree: int, count: int | None = None) -> np.ndarray:
+    """(count, 2^degree - 1) bank of Gold codes — one constant array for
+    batched correlation on the MXU."""
+    n = (1 << degree) - 1
+    count = count if count is not None else n + 2
+    return np.stack([gold_code(degree, i) for i in range(count)])
+
+
+def barker_code(length: int) -> np.ndarray:
+    if length not in BARKER_CODES:
+        raise ValueError(
+            f"no Barker code of length {length}; "
+            f"available: {sorted(BARKER_CODES)}"
+        )
+    return np.asarray(BARKER_CODES[length], np.int8)
+
+
+def zadoff_chu(root: int, length: int, shift: int = 0) -> np.ndarray:
+    """Zadoff-Chu sequence (zadoff_chu_generator.rs): constant amplitude,
+    zero autocorrelation. x[n] = exp(-jπ·u·n·(n+1+2q)/N) for odd N."""
+    n = np.arange(length)
+    if length % 2 == 0:
+        phase = -np.pi * root * n * n / length
+    else:
+        phase = -np.pi * root * n * (n + 1 + 2 * shift) / length
+    return np.exp(1j * phase).astype(np.complex64)
+
+
+def pn_autocorrelation(chips: np.ndarray) -> np.ndarray:
+    """Circular autocorrelation of a ±1 chip sequence (test utility)."""
+    n = len(chips)
+    f = np.fft.fft(chips.astype(np.float64))
+    return np.round(np.real(np.fft.ifft(f * np.conj(f)))).astype(np.int64)

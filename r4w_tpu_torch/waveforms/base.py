@@ -57,6 +57,25 @@ def coerce_data_bytes(data) -> np.ndarray:
     return np.asarray(data).astype(np.int32)
 
 
+def as_iq(samples, device) -> torch.Tensor:
+    """`samples` as complex64: a tensor stays on its own device, anything
+    else (numpy arrays, lists) is put on `device`."""
+    if isinstance(samples, torch.Tensor):
+        return samples.to(IQ_DTYPE)
+    return torch.as_tensor(np.array(samples, np.complex64), device=device)
+
+
+def host_table(values: np.ndarray, device) -> torch.Tensor:
+    """A numpy table built on the host, as a tensor on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(values)).to(device)
+
+
+def empty_result(device) -> "DemodResult":
+    """No bits and no symbols: a capture shorter than one symbol."""
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    return DemodResult(bits=empty, symbols=empty)
+
+
 def is_packed_bytes(data: np.ndarray) -> bool:
     """Values > 1 mean packed bytes, not bits."""
     return bool(np.any(data > 1))

@@ -54,6 +54,7 @@ from r4w_tpu_torch.waveforms.base import (
     register_waveform,
 )
 from r4w_tpu_torch.waveforms.linear_mod import pack_demod_bits
+from r4w_tpu_torch.waveforms.serial_tone import _index, _psk8, interp
 
 SYMBOL_RATE = 2400.0
 CARRIER_HZ = 1800.0
@@ -140,38 +141,11 @@ def segment_values(d1: int, d2: int, remaining: int) -> np.ndarray:
     return np.asarray(list(SYNC_PATTERN) + [d1, d2] + count + [0], np.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _psk8_host() -> np.ndarray:
-    ang = 2.0 * np.pi * np.arange(8) / 8.0
-    return np.exp(1j * ang).astype(np.complex64)
-
-
-@functools.lru_cache(maxsize=None)
-def _psk8(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_psk8_host()).to(device)
-
-
-def _index(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(table)).long().to(device)
-
-
 def _carrier(n: int, sample_rate: float, device: torch.device) -> torch.Tensor:
     """exp(j·φ[i]), φ[i] = float32(2π·f/fs) · i in float32."""
     step = torch.tensor(2.0 * math.pi * CARRIER_HZ / sample_rate, dtype=REAL_DTYPE)
     ph = step.to(device) * torch.arange(n, dtype=REAL_DTYPE, device=device)
     return torch.complex(torch.cos(ph), torch.sin(ph))
-
-
-def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """Linear interpolation of (xp, fp) at x, xp increasing, as ``jnp.interp``:
-    fp[i-1] + (x - xp[i-1]) / (xp[i] - xp[i-1]) · (fp[i] - fp[i-1]) between
-    anchors, fp[0] below the first and fp[-1] above the last. `fp` may have
-    leading axes (..., A): each row is interpolated, as a vmap of the
-    reference's would."""
-    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.shape[0] - 1)
-    f = fp[..., i - 1] + (x - xp[i - 1]) / (xp[i] - xp[i - 1]) * (fp[..., i] - fp[..., i - 1])
-    f = torch.where(x < xp[0], fp[..., :1], f)
-    return torch.where(x > xp[-1], fp[..., -1:], f)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,7 +24,7 @@ frame and the same receiver:
 The receiver equalises every frame at once from its anchors (the
 preamble's least-squares gain and the three probe blocks'), linearly
 interpolated over the frame with the searchsorted lerp of
-`milstd188110.interp`, then demaps, deinterleaves and decodes the whole
+`serial_tone.interp`, then demaps, deinterleaves and decodes the whole
 burst in one Viterbi call. The carrier phase is float32 2π·f/fs times a
 float32 sample index, as the reference computes it. The 8PSK points and
 the index tables are MIL-STD-188-110's (the same grid).
@@ -52,7 +52,7 @@ from r4w_tpu_torch.waveforms.base import (
     register_waveform,
 )
 from r4w_tpu_torch.waveforms.linear_mod import pack_demod_bits
-from r4w_tpu_torch.waveforms.milstd188110 import _index, _psk8, interp
+from r4w_tpu_torch.waveforms.serial_tone import _index, _psk8, interp
 
 SYMBOL_RATE = 2400.0
 CARRIER_HZ = 1800.0

@@ -20,15 +20,17 @@ import torch
 
 from r4w_tpu.channel import channel as ref_channel
 from r4w_tpu.waveforms import create_waveform as ref_create_waveform
+from r4w_tpu.waveforms import list_waveforms as ref_list_waveforms
 from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import types
 from r4w_tpu_torch import arq, ber
-from r4w_tpu_torch.entry import (ber_gate, ddc_bench, dual_pvt, entry, galileo_pvt,
-                                 glonass_track, gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
-                                 packet_capture, pcps_bench, pcps_gcorr_bench, sweep_lanes,
-                                 viterbi_bench, waterfall_snr_db)
+from r4w_tpu_torch.entry import (ber_gate, ddc_bench, device_sweep, dual_pvt, entry,
+                                 fleet_noisy_gate, galileo_pvt, glonass_track, gps_pvt_fix,
+                                 lora_packet_roundtrip, lora_sweep, packet_capture, pcps_bench,
+                                 pcps_gcorr_bench, sincgars_data_roundtrip, sweep_lanes,
+                                 sweep_round, viterbi_bench, waterfall_snr_db)
 from r4w_tpu_torch.gnss import GnssScenario, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, init_state, inav
 from r4w_tpu_torch.gnss.gps_pvt_fix import main_code_phase, main_decoded
@@ -74,15 +76,14 @@ def test_quick_start_roundtrip():
 
 
 def test_factory_names_aliases_and_unknowns():
-    assert list_waveforms() == ["LoRa", "LoRa-SF7", "LoRa-SF12", "MIL-STD-188-110", "GPS-L1CA",
-                                "GPS-L5", "GLONASS-L1OF", "Galileo-E1", "BPSK", "QPSK", "8-PSK",
-                                "16-QAM", "64-QAM", "256-QAM", "STANAG-4285"]
+    assert list_waveforms() == ref_list_waveforms()  # all 50, in the reference's order
     assert WaveformFactory.list() == list_waveforms()
     assert WaveformFactory.create("css").params.sf == 7
     assert create_waveform("lora_sf12").params.sf == 12
     assert create_waveform("LoRa", device="cpu").device == torch.device("cpu")
     assert create_waveform("QPSK").info().name == "QPSK"
-    assert create_waveform("FSK") is None
+    assert create_waveform("FSK").info().name == "BFSK"
+    assert create_waveform("FSK8") is None
     assert create_waveform("GPS-L1CA-PRN5", device="cpu").prn == 5
     assert create_waveform("GPS-L1CA-PRN33") is None
 
@@ -150,7 +151,8 @@ def test_entry_points_default_to_the_card():
     cuda = torch.device("cuda")
     for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate,
                gps_pvt_fix, pcps_bench, galileo_pvt, dual_pvt, glonass_track, ber_gate,
-               lora_packet_roundtrip, packet_capture, pcps_gcorr_bench):
+               lora_packet_roundtrip, packet_capture, pcps_gcorr_bench, device_sweep, sweep_round,
+               fleet_noisy_gate, sincgars_data_roundtrip):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
     for fn in (GnssScenario, init_state, main_decoded, main_code_phase, gal.main, dual.main,
                glo.main, gal.decode_sv_channel, inav.decode_stream, inav.decode_part,
@@ -161,8 +163,8 @@ def test_entry_points_default_to_the_card():
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
     assert arq.HarqSender().device == cuda and arq.HarqReceiver().device == cuda
-    for name in ("BPSK", "64-QAM", "STANAG-4285"):
-        assert create_waveform(name).device == cuda
+    for name in list_waveforms():
+        assert create_waveform(name).device == cuda, name
     assert types.resolve_device(None) == cuda and types.resolve_device("cpu").type == "cpu"
     assert types.to_tensor(torch.ones(2)).device.type == "cpu"  # a tensor keeps its device
 
@@ -189,6 +191,10 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.waveforms.linear_mod, r4w_tpu_torch.waveforms.psk\n"
             "import r4w_tpu_torch.waveforms.qam, r4w_tpu_torch.waveforms.stanag4285\n"
             "import r4w_tpu_torch.ber, r4w_tpu_torch.arq\n"
+            "import r4w_tpu_torch.waveforms, r4w_tpu_torch.fec.galois, r4w_tpu_torch.fec.block\n"
+            "import r4w_tpu_torch.ops.ofdm, r4w_tpu_torch.channel.threefry\n"
+            "import r4w_tpu_torch.waveforms.milfh_waveforms, r4w_tpu_torch.waveforms.link16\n"
+            "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
             "print(bad)\n"
