@@ -53,7 +53,21 @@ reference's own noise: digital names bit-exact, the CW, analog, FMCW and
 beacon bars); phase 31 ``sincgars_data_roundtrip()`` (2,048 bytes in 29
 coded frames over the SINCGARS hop PHY at 10 dB: 29/29 with their CRC,
 one launch of each Viterbi kernel, both kernels bit for bit against their
-plain versions at the decode's bm (638, 4, 29) and timed there). Each
+plain versions at the decode's bm (638, 4, 29) and timed there). Then the
+channel models and the FEC codecs: phase 32 holds every channel and
+impairment function on the card against the port's CPU result on the
+same threefry draws and runs ``channel_bench()`` (AWGN at 20 dB, 16,384
+times over 2^18 samples) in Msamples/s; phase 33 ``fading_gate()`` (OFDM
+through TDL EPA and EVA, LoRa-SF7, DSSS and BFSK through EPA, on the
+reference's draws: every payload back; the dechirp kernel launched by the
+LoRa case), then its pass rates under fresh Philox draws; phase 34
+``coded_link_gate()`` (the JAX FEC tests' inputs: LDPC, turbo, polar,
+convolutional, TCM at 100,000 bits, DVB-S2X short frames, LT, MAP: every
+bar, decisions equal to the CPU's, each Viterbi kernel launched twice,
+by the convolutional gate and TCM), the launches and time of one BCJR,
+turbo, MAP, LDPC, DVB-S2X and TCM decode; phase 35 ``dvb_s2x_bench()``
+(128 normal frames at rate 1/2, 3.0 dB, 40 iterations: every frame
+decoded) in information Mbit/s. Each
 phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
@@ -77,19 +91,21 @@ import torch
 import torch.nn.functional as F
 
 from r4w_tpu_torch import arq, ber, create_waveform
-from r4w_tpu_torch.channel import awgn
+from r4w_tpu_torch import channel as chan
+from r4w_tpu_torch.channel import awgn, threefry
 from r4w_tpu_torch.core import windows
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
                                  DDC_STREAMS, PACKET_GAP_SAMPLES, PCPS_CONFIG, PCPS_RATE_HZ,
                                  SWEEP_PAYLOAD_BYTES, SWEEP_RATE_HZ, SWEEP_SNRS_DB,
-                                 VITERBI_INFO_BITS, VITERBI_LANES, ber_gate, ddc_bench,
-                                 ddc_signal, device_sweep, dual_pvt, entry, fleet_noisy_gate,
-                                 galileo_pvt, gcorr_inputs, gcorr_step, glonass_track,
-                                 gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
+                                 VITERBI_INFO_BITS, VITERBI_LANES, ber_gate, channel_bench,
+                                 coded_link_gate, ddc_bench, ddc_signal, device_sweep,
+                                 dual_pvt, dvb_s2x_bench, dvb_s2x_frames, entry, fading_gate,
+                                 fleet_noisy_gate, galileo_pvt, gcorr_inputs, gcorr_step,
+                                 glonass_track, gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
                                  noisy_pass_rates, packet_capture, pcps_bench, pcps_gcorr_bench,
                                  pcps_inputs, sincgars_data_roundtrip, sweep_lanes, sweep_round,
-                                 viterbi_bench)
-from r4w_tpu_torch.fec import convolutional, crc
+                                 TCM_GATE_BITS, viterbi_bench)
+from r4w_tpu_torch.fec import convolutional, crc, dvb_s2x, ldpc, tcm, turbo
 from r4w_tpu_torch.gnss import acquisition, inav, scenario, tracking
 from r4w_tpu_torch.gnss import dual_pvt as dual
 from r4w_tpu_torch.gnss import galileo_pvt as gal
@@ -99,7 +115,7 @@ from r4w_tpu_torch.gnss.ephemeris import circular_ephemeris_for_position
 from r4w_tpu_torch.gnss import prn as gnss_prn
 from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
-from r4w_tpu_torch.ops import filters, filters2, resample, stream_math
+from r4w_tpu_torch.ops import filters, filters2, impairments, resample, stream_math
 from r4w_tpu_torch.profiling import breakdown
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
@@ -206,6 +222,13 @@ SWEEP_NO_BYTES = {"CW", "ADS-B", "AM-Broadcast", "FM-Broadcast", "NBFM", "FMCW",
 # card and CPU may truncate one code apart (tests/torch_fleet_parity.py)
 ANALOG_NAMES, ANALOG_CODE_TOL = ("AM-Broadcast", "FM-Broadcast", "NBFM"), 1
 SINCGARS_FRAMES, SINCGARS_FRAME_BITS = 29, 1276  # 2,048 bytes at 1200 bps, 71-byte payloads
+# The channel models and FEC codecs (phases 32-35)
+# max|card - CPU| / max|CPU| on the same threefry draws: the card's float32
+# cos/sin/exp/erfc and its parallel cumulative sum (phase noise) part by ulps
+CHANNEL_CARD_TOL = 1e-5
+CHANNEL_CHECK_SHAPE = (4, 1 << 16)
+# the Viterbi launches of coded_link_gate(): the convolutional gate's decode and TCM's
+CODED_GATE_VITERBI = 2
 
 
 def phase(name: str, message: str) -> None:
@@ -700,13 +723,20 @@ def noisy_branch_metrics(lanes: int, steps: int, constraint: int, seed: int, pol
 
 
 def check_viterbi(bm: torch.Tensor, constraint: int, polys=None) -> dict:
-    """Both kernels against their plain versions on `bm`, with torch.equal."""
+    """Both kernels against their plain versions on `bm`, with torch.equal;
+    also the device milliseconds of the plain forward pass and of the plain
+    traceback from state 0 (one call each, between CUDA events)."""
     polys = VITERBI_CODES[constraint] if polys is None else polys
     dec, final = viterbi.viterbi_forward_cuda(bm, constraint, polys)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
     want_dec, want_final = viterbi.viterbi_forward(bm, constraint, polys)
+    marks[1].record()
+    want_bits = [viterbi.viterbi_traceback(want_dec, constraint, polys)]
+    marks[2].record()
     start = torch.argmax(want_final, dim=0).to(torch.int32)
+    want_bits.append(viterbi.viterbi_traceback(want_dec, constraint, polys, start))
     bits = [viterbi.viterbi_traceback_cuda(want_dec, constraint, polys, s) for s in (None, start)]
-    want_bits = [viterbi.viterbi_traceback(want_dec, constraint, polys, s) for s in (None, start)]
     torch.cuda.synchronize()
     label = f"K={constraint} R={len(polys)} (T, L)=({bm.shape[0]}, {bm.shape[2]})"
     if not (torch.equal(dec, want_dec) and torch.equal(final, want_final)):
@@ -715,7 +745,9 @@ def check_viterbi(bm: torch.Tensor, constraint: int, polys=None) -> dict:
         raise AssertionError(f"{label}: viterbi_traceback kernel differs from the plain version")
     return {"forward_abs_err": float(torch.max(torch.abs(final - want_final))),
             "traceback_abs_err": max(float(torch.max(torch.abs(a - b)))
-                                     for a, b in zip(bits, want_bits))}
+                                     for a, b in zip(bits, want_bits)),
+            "plain_forward_ms": marks[0].elapsed_time(marks[1]),
+            "plain_traceback_ms": marks[1].elapsed_time(marks[2])}
 
 
 def forward_bound(bm: torch.Tensor, dec: torch.Tensor, constraint: int) -> tuple[float, str]:
@@ -1810,6 +1842,219 @@ def drive_sincgars_data(dev: torch.device) -> dict:
               f"{n} lanes' bits equal")
     return table
 
+def channel_cases(x: torch.Tensor) -> dict:
+    """Phase 32's calls on `x` (CHANNEL_CHECK_SHAPE complex64), every
+    random one on the same threefry keys, keyed by a label; each returns a
+    tensor or a tuple of tensors."""
+    dev, n = x.device, x.shape[-1]
+    k = threefry.key(32)
+    cases = {
+        "awgn": lambda: awgn(x, 7.0, key=k, path_loss_db=2.0),
+        "cfo +": lambda: chan.cfo(x, 1234.5, 1e6, 0.3),
+        "cfo -": lambda: chan.cfo(x, -330_000.0, 1e6),
+        "multipath_2ray": lambda: chan.multipath_2ray(x, 7, 0.4),
+        "rayleigh": lambda: chan.rayleigh(x, key=k),
+        "rician": lambda: chan.rician(x, 3.5, key=k),
+        "block_fading": lambda: chan.block_fading(x, 300, key=k),
+        "jakes_fading": lambda: chan.jakes_fading(n, 300.0, 30.72e6, key=k, device=dev),
+        "gaussian_doppler_fading": lambda: chan.gaussian_doppler_fading(n, 50.0, 1e6, key=k,
+                                                                        device=dev),
+        "flat_doppler_shift": lambda: chan.flat_doppler_shift(n, 120.0, 1e6, device=dev),
+        "theoretical_ber_awgn": lambda: chan.theoretical_ber_awgn(
+            torch.linspace(-30.0, 10.0, 41, device=dev), 7),
+        "measure_snr": lambda: chan.measure_snr(x, awgn(x, 9.0, key=k)),
+        "phase_noise": lambda: impairments.phase_noise(x, 100.0, 1e6, key=k),
+        "iq_imbalance": lambda: impairments.iq_imbalance(x, 0.7, 3.0),
+        "iq_imbalance_estimate": lambda: impairments.iq_imbalance_estimate(
+            impairments.iq_imbalance(x[0], 0.7, 3.0)),
+        "iq_imbalance_correct": lambda: impairments.iq_imbalance_correct(x, 1.08, 0.05),
+        "dc_offset": lambda: impairments.dc_offset(x, 0.1, -0.2),
+        "saleh_pa": lambda: impairments.saleh_pa(x),
+        "rapp_pa": lambda: impairments.rapp_pa(x, 0.8, 3.0),
+        "quantize_dac": lambda: impairments.quantize_dac(x, 8, 2.0),
+    }
+    for profile in ("EPA", "EVA", "ETU"):
+        cases[f"tdl_channel {profile}"] = lambda p=profile: chan.tdl_channel(
+            x, p, 30.72e6, 50.0, key=k)
+    for model in ("ideal", "awgn", "awgn_cfo", "multipath", "rayleigh", "rician", "tdl_awgn",
+                  "freq_selective", "jakes"):
+        cfg = chan.ChannelConfig(model=model, snr_db=15.0, cfo_hz=-100.0, multipath_delay=2,
+                                 multipath_amplitude=0.3, sample_rate=1e6, tdl_profile="EVA",
+                                 doppler_hz=20.0)
+        cases[f"apply_channel {model}"] = lambda c=cfg: chan.apply_channel(x, c, key=k)
+    return cases
+
+
+def check_channel_card_against_cpu(dev: torch.device) -> dict:
+    """Phase 32: every channel and impairment function on the card against
+    the port's CPU result on the same input and the same threefry draws,
+    within CHANNEL_CARD_TOL of the CPU result's peak; then `channel_bench()`."""
+    gen = torch.Generator().manual_seed(32)
+    x = randn_iq(CHANNEL_CHECK_SHAPE, gen)
+    card_cases, cpu_cases = channel_cases(x.to(dev)), channel_cases(x)
+    worst = {}
+    for label, fn in card_cases.items():
+        card, cpu = fn(), cpu_cases[label]()
+        for got, want in zip(card if isinstance(card, tuple) else (card,),
+                             cpu if isinstance(cpu, tuple) else (cpu,)):
+            if got.device.type != dev.type or got.shape != want.shape:
+                raise AssertionError(f"{label}: {got.shape} on {got.device}, want {want.shape}")
+            worst[label] = max(worst.get(label, 0.0), rel_err(got.cpu(), want)[1])
+        if not worst[label] <= CHANNEL_CARD_TOL:
+            raise AssertionError(f"{label}: card vs CPU max|Δ|/max {worst[label]:.3g} > "
+                                 f"{CHANNEL_CARD_TOL}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    phase("32 channel card vs cpu", f"{len(worst)} channel and impairment calls on "
+          f"{CHANNEL_CHECK_SHAPE} c64, threefry key 32: all within {CHANNEL_CARD_TOL} of the "
+          f"CPU's peak; largest " + ", ".join(f"{k} {v:.3g}" for k, v in top))
+    t0 = time.perf_counter()
+    bench = channel_bench(dev)
+    if not (math.isfinite(bench["mean_power"]) and 1.0 < bench["mean_power"] < 4.0):
+        raise AssertionError(f"channel_bench: mean power {bench['mean_power']}")
+    phase("32 channel bench", f"{bench['samples']} samples × {bench['iters']} awgn(20 dB) "
+          f"applications on Philox: {bench['msamples_per_s']:.3f} Msamples/s, compute_s "
+          f"{bench['compute_s']:.6f}, mean power {bench['mean_power']:.4f}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    return {"worst": worst, "bench": bench}
+
+
+def drive_fading_gate(dev: torch.device) -> dict:
+    """Phase 33: `fading_gate()` on the card with the counts set to 0 just
+    before it and read just after: every case's payload back on the
+    reference's draws, the dechirp kernel launched (the LoRa-SF7 case, on
+    the reference's draws and the 20 Philox draws of the pass rates)."""
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    gate = fading_gate(dev)
+    counts = kernel_counts()
+    if not gate["ok"] or counts["dechirp_power"] <= 0:
+        raise AssertionError(f"fading gate: {gate['results']}, launches {counts}")
+    secs = time.perf_counter() - t0
+    phase("33 fading gate", f"{len(gate['results'])} cases on {dev}, reference's threefry draws: "
+          + ", ".join(f"{k} {v['bytes']}" for k, v in gate["results"].items())
+          + f" (every payload back); launches {json.dumps(counts)}; phase {secs:.3f} s")
+    phase("33 pass rates", "share of 20 Philox draws decoding each case (not a gate): "
+          + json.dumps(gate["pass_rates"]))
+    return {"launches": counts, "seconds": secs, "pass_rates": gate["pass_rates"]}
+
+
+def decode_costs(dev: torch.device) -> dict:
+    """Device launches, busy time and host milliseconds of one decode of
+    each iterative or recursive decoder at the coded gate's shapes (Philox
+    inputs: the launch counts do not depend on the values)."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+    sys_, p1, p2, ap, soft, lq, ls = (
+        4.0 * torch.randn(shape, generator=gen, device=dev)
+        for shape in ((128,), (128,), (128,), (128,), (1036,), (4, 96),
+                      (dvb_s2x.parity_structure("1/2", "short")["n"],)))
+    hg = ldpc.ldpc_code(ldpc.make_regular_ldpc(96, 3, 6), dev)
+    pi = turbo.default_interleaver(128)
+    rx = randn_iq((TCM_GATE_BITS // 2 + 2,), gen)
+    calls = {
+        "bcjr (N=128)": lambda: turbo._bcjr_maxlog(sys_, p1, ap),
+        "turbo_decode (N=128, 6 iterations)": lambda: turbo.turbo_decode(sys_, p1, p2, pi)[1],
+        "map_decode (K=7, T=518)": lambda: convolutional.map_decode(soft)[0],
+        "ldpc_decode ((4, 96), 25 iterations)": lambda: ldpc.ldpc_decode(lq, hg)[0],
+        "dvb_s2x decode (short 1/2, 40 iterations)": lambda: dvb_s2x.decode(
+            ls, "1/2", "short", iters=40)[0],
+        f"tcm_decode (T={TCM_GATE_BITS // 2 + 2})": lambda: tcm.tcm_decode(rx),
+    }
+    out = {}
+    for name, fn in calls.items():
+        prof = breakdown(fn)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = {"launches": prof["device_events"], "busy_ms": prof["busy_ms"],
+                     "host_ms": (time.perf_counter() - t0) * 1e3,
+                     "idle_share": prof["idle_share"]}
+    return out
+
+
+def drive_coded_gate(dev: torch.device) -> dict:
+    """Phase 34: `coded_link_gate()` on the card with the counts set to 0
+    just before it and read just after: every bar met, each Viterbi kernel
+    launched CODED_GATE_VITERBI times (the convolutional gate's decode and
+    TCM's, 100,000 bits) and no other kernel; every case's decisions equal
+    to the port's CPU run of the gate, TCM's 100,000 bits among them (the
+    CPU runs the plain Viterbi); both Viterbi kernels against their plain
+    versions at the bm the gate's TCM decode launched them on, and timed
+    there; then the launches and time of one decode of each recursive or
+    iterative decoder."""
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    gate = coded_link_gate(dev)
+    counts = kernel_counts()
+    want = {"dechirp_power": 0, "fir_decimate": 0, "nco_mix": 0,
+            "viterbi_forward": CODED_GATE_VITERBI, "viterbi_traceback": CODED_GATE_VITERBI}
+    if not gate["ok"] or counts != want:
+        failed = [name for name, case in gate["results"].items() if not case["ok"]]
+        raise AssertionError(f"coded gate: failures {failed}, launches {counts}")
+    secs = time.perf_counter() - t0
+    res = gate["results"]
+    cpu = coded_link_gate("cpu")["results"]
+    for name, case in res.items():
+        for key, value in case.items():
+            if not np.array_equal(np.asarray(value), np.asarray(cpu[name][key])):
+                raise AssertionError(f"coded gate {name}: {key} differs between card and CPU")
+    phase("34 coded gate", f"{len(res)} cases on {dev}, every bar met: LDPC "
+          f"{res['ldpc']['frames_ok']}/4 "
+          f"frames; turbo {res['turbo']['raw_errors']} raw errors -> {res['turbo']['errors']}; "
+          f"polar {res['polar']['errors']} errors; conv BER {res['conv']['coded_ber']} < uncoded "
+          f"{res['conv']['uncoded_ber']}; TCM BER {res['tcm']['tcm_ber']} < 0.5 × QPSK "
+          f"{res['tcm']['qpsk_ber']} over {res['tcm']['bits']} bits; DVB-S2X short 1/4, 1/2, "
+          f"3/4, 9/10 decoded; LT with and without erasures; MAP soft {res['map']['errors_soft']} "
+          f"<= hard {res['map']['errors_hard']} errors; every decision equal to the CPU's, "
+          f"TCM's {res['tcm']['bits']} bits among them; "
+          f"launches {json.dumps(counts)}; phase {secs:.3f} s")
+    # both kernels at the bm of the gate's TCM decode: bit for bit against the
+    # plain versions (timed once there: a loop of small launches a step), the
+    # kernels timed queued
+    rx = torch.from_numpy(res["tcm"]["symbols"]).to(dev)
+    bm = tcm.viterbi_metrics(tcm.tcm_branch_metrics(rx)[0][None])
+    k, polys = tcm._K, tcm._POLYS
+    check = check_viterbi(bm, k, polys)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, k, polys)
+    table = {}
+    for name, kern_fn, plain, err, (b_ms, b_by), shape in (
+            ("viterbi_forward", lambda: viterbi.viterbi_forward_cuda(bm, k, polys),
+             check["plain_forward_ms"], check["forward_abs_err"], forward_bound(bm, dec, k),
+             bm.shape),
+            ("viterbi_traceback", lambda: viterbi.viterbi_traceback_cuda(dec, k, polys),
+             check["plain_traceback_ms"], check["traceback_abs_err"], traceback_bounds(dec)[0],
+             dec.shape)):
+        kern = [queued_ms(kern_fn) for _ in range(2)]
+        table[name] = {"ms_tcm": sum(kern) / 2, "plain_ms_tcm": plain, "bound_ms_tcm": b_ms,
+                       "bound_by_tcm": b_by, "max_abs_err_tcm": err, "shape_tcm": list(shape)}
+    phase("34 tcm", f"at the gate's TCM bm {tuple(bm.shape)} both kernels equal their plain "
+          f"versions bit for bit: " + "; ".join(
+              f"{k} {v['ms_tcm']:.6f} ms queued (plain {v['plain_ms_tcm']:.3f} ms, bound "
+              f"{v['bound_ms_tcm']:.3g} ms by {v['bound_by_tcm']})" for k, v in table.items()))
+    costs = decode_costs(dev)
+    phase("34 decode costs", json.dumps(costs))
+    return {"launches": counts, "seconds": secs, "costs": costs, "timing": table}
+
+
+def drive_dvb_bench(dev: torch.device) -> dict:
+    """Phase 35: `dvb_s2x_bench()`: 128 normal frames at rate 1/2, 3.0 dB,
+    40 iterations, every frame parity-ok and equal to the bits sent; then
+    the decode's launches and busy time under the profiler."""
+    bench = dvb_s2x_bench(dev)
+    if not bench["ok"]:
+        raise AssertionError(f"dvb_s2x_bench: {bench['frames_ok']}/{bench['frames']} frames")
+    _, llr = dvb_s2x_frames(dev)
+    prof = breakdown(lambda: dvb_s2x.decode(llr, "1/2", "normal", iters=40)[0])
+    del llr
+    phase("35 dvb_s2x bench", f"{bench['frames']} normal frames × {bench['info_bits']} info "
+          f"bits, rate 1/2, {bench['iters']} iterations on {dev}: {bench['frames_ok']}/"
+          f"{bench['frames']} decoded; {bench['info_mbps']:.3f} info Mbit/s, compute_s "
+          f"{bench['compute_s']:.6f}; one decode under the profiler: {prof['device_events']} "
+          f"launches, busy {prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}")
+    return {"bench": bench, "profile": prof}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2043,6 +2288,15 @@ def main() -> None:
     gate_run = drive_noisy_gate(dev)
     sincgars_timing = drive_sincgars_data(dev)
 
+    # The channel models and the FEC codecs, each path with the counts set to
+    # 0 just before it and read just after: the fading gate (the dechirp
+    # kernel in LoRa-SF7's case), the coded-link gate (both Viterbi kernels,
+    # by the convolutional gate and TCM), the DVB-S2X bench (none).
+    check_channel_card_against_cpu(dev)
+    fading_run = drive_fading_gate(dev)
+    coded_run = drive_coded_gate(dev)
+    drive_dvb_bench(dev)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -2068,6 +2322,7 @@ def main() -> None:
         "launches_packet_demod": packet_run["launches"]["demodulation"],
         "launches_fleet_sweep": sweep_run["launches"]["dechirp_power"],
         "launches_noisy_gate": gate_run["launches"]["dechirp_power"],
+        "launches_fading_gate": fading_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -2086,6 +2341,8 @@ def main() -> None:
             **sincgars_timing[name],
             "launches_fleet_sweep": sweep_run["launches"][name],
             "launches_noisy_gate": gate_run["launches"][name],
+            "launches_coded_gate": coded_run["launches"][name],
+            **coded_run["timing"][name],
             "library_ms": None,
         })
     kernels.append({

@@ -14,8 +14,12 @@ path (`fec.convolutional`, MIL-STD-188-110) and its two kernels
 the FIR with decimation (`kernels.fir`) and the oscillator mix
 (`kernels.nco`); the GPS, Galileo and GLONASS receivers (`gnss`); the
 link round trips (LoRa packets, PSK/QAM, the BER gate, STANAG 4285,
-ARQ/HARQ); and the whole waveform fleet, the 50 names of the reference's
-factory (`waveforms`).
+ARQ/HARQ); the whole waveform fleet, the 50 names of the reference's
+factory (`waveforms`); and the channel models (`channel`: AWGN, CFO,
+Rayleigh, Rician, block and Jakes fading, the 3GPP TDL profiles;
+`ops.impairments`) and the FEC codecs (`fec`: LDPC, DVB-S2X, turbo,
+polar, TCM on the Viterbi kernels, fountain codes, the interleavers and
+max-log-MAP decoding).
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,8 @@ numpy, so that the port can put the reference's own noise for a seed
 through a channel without importing JAX. The random bits equal JAX's bit
 for bit; the normals agree within 3e-7 relative (about 1% of them differ
 by a float32 ulp or two, from the rounding of log1p and of erfinv's
-polynomial). Everything runs on the host; callers move the noise to their device.
+polynomial). `uniform` is ``jax.random.uniform`` in float32, bit for bit.
+Everything runs on the host; callers move the draws to their device.
 """
 
 from __future__ import annotations
@@ -82,6 +83,19 @@ def erfinv(x: np.ndarray) -> np.ndarray:
         return np.where(np.abs(x) == 1, x * np.float32(np.inf), p * x).astype(np.float32)
 
 
+def uniform(k: tuple[int, int], shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``: the top 23
+    bits of each word OR'd into 1.0's exponent, minus 1, then scaled and
+    offset in one rounding (XLA fuses them into a multiply-add; the float64
+    product of two float32 values is exact) and raised to at least `minval`."""
+    n = int(np.prod(shape, dtype=np.int64))
+    bits = random_bits(k, n)
+    f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scaled = (f.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(np.float32)
+    return np.maximum(lo, scaled).reshape(shape)
+
+
 def normal(k: tuple[int, int], shape) -> np.ndarray:
     """``jax.random.normal(k, shape, float32)``: uniform u in (-1, 1) from
     the top 23 bits of each word, then √2·erfinv(u)."""
@@ -92,11 +106,3 @@ def normal(k: tuple[int, int], shape) -> np.ndarray:
     u = np.maximum(lo, (f * (hi - lo) + lo).astype(np.float32))
     return (np.float32(np.sqrt(2)) * erfinv(u)).reshape(shape)
 
-
-def complex_normal(seed: int, shape) -> np.ndarray:
-    """The unit-variance-per-component complex noise that the reference's
-    ``channel.awgn(jax.random.key(seed), ...)`` adds for samples of
-    `shape`, before scaling: real part from the first split key, imaginary
-    part from the second."""
-    re_key, im_key = split(key(seed))
-    return (normal(re_key, shape) + 1j * normal(im_key, shape)).astype(np.complex64)

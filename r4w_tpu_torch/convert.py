@@ -7,7 +7,11 @@ imported), and `tables_numpy` and `viterbi_tables_numpy` hand the port's
 tables back as numpy so they can be held against the reference's own.
 `fir_from_reference` takes a reference FIR's taps and streaming state
 (numpy) onto a device, so a stream begun in the JAX package goes on in
-the port.
+the port. `channel_config_from_reference` reads a reference
+`ChannelConfig` by its fields; `ldpc_code_from_reference` and
+`dvb_s2x_structure_from_reference` take the reference's code structures
+(the ``make_regular_ldpc`` tuple, a ``parity_structure`` dict) onto a
+device with the decoders' layouts.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from r4w_tpu_torch.channel.channel import ChannelConfig
 from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE
-from r4w_tpu_torch.fec import convolutional
+from r4w_tpu_torch.fec import convolutional, dvb_s2x, ldpc
 from r4w_tpu_torch.kernels import dechirp, viterbi
 from r4w_tpu_torch.ops import coding
 from r4w_tpu_torch.waveforms.lora import chirp
@@ -86,3 +91,25 @@ def fir_from_reference(taps, state=None, device=DEFAULT_DEVICE):
     state = np.array(state)  # a copy: numpy views of JAX arrays are read-only
     dtype = IQ_DTYPE if np.iscomplexobj(state) else REAL_DTYPE
     return taps_t, torch.as_tensor(state, device=device).to(dtype)
+
+
+def channel_config_from_reference(cfg) -> ChannelConfig:
+    """An ``r4w_tpu`` `ChannelConfig` (or anything with its fields) -> the port's."""
+    return ChannelConfig(**{f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(ChannelConfig)})
+
+
+def ldpc_code_from_reference(h_g, device=DEFAULT_DEVICE) -> ldpc.LdpcCode:
+    """The reference's ``make_regular_ldpc`` tuple ``(h, g, k, data_cols)``
+    (numpy) as an `LdpcCode` on `device`, for `ldpc_encode`, `ldpc_decode`
+    and `ldpc_extract_data`."""
+    h, g, k, data_cols = h_g
+    return ldpc.ldpc_code((np.array(h), np.array(g), int(k), np.array(data_cols)),
+                          torch.device(device))
+
+
+def dvb_s2x_structure_from_reference(st: dict, device=DEFAULT_DEVICE) -> dvb_s2x.Structure:
+    """A reference ``dvb_s2x.parity_structure`` dict on `device`: dimensions,
+    the information columns' rows and columns, and the decoder's layout."""
+    return dvb_s2x.structure_on({key: np.array(v) for key, v in st.items()},
+                                torch.device(device))

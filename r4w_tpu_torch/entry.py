@@ -38,7 +38,16 @@ through AWGN at its own SNR, digital names bit-exact, the analog, radar and
 beacon names held to their functional bars. `sincgars_data_roundtrip(device)`
 frames a file-sized payload for SINCGARS data mode, codes it, hops it over
 the air through AWGN and back, its frames decoded as lanes of one Viterbi
-call. Every entry point runs on the CUDA card unless the caller names
+call. `channel_bench(device)` is the counterpart of ``bench.py``'s
+``bench_channel`` (its threefry half): AWGN at 20 dB applied 16,384 times
+to 2^18 samples, in samples per second. `fading_gate(device)` puts OFDM,
+LoRa-SF7, DSSS and BFSK through the TDL fading channels on the
+reference's own threefry draws, as the JAX package's fading tests do.
+`coded_link_gate(device)` runs the JAX FEC tests' own inputs (LDPC,
+turbo, polar, convolutional, TCM, DVB-S2X short frames, LT with erasures,
+MAP into a soft chain) through the port's codecs, each to its test's bar.
+`dvb_s2x_bench(device)` decodes a batch of 128 DVB-S2X normal frames at
+rate 1/2. Every entry point runs on the CUDA card unless the caller names
 another device.
 """
 
@@ -52,10 +61,12 @@ import numpy as np
 import torch
 
 from r4w_tpu_torch import ber
-from r4w_tpu_torch.channel import awgn, threefry
+from r4w_tpu_torch.channel import ChannelConfig, apply_channel, awgn, threefry
 from r4w_tpu_torch.core.types import (DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE, SYMBOL_DTYPE,
                                       resolve_device)
-from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
+from r4w_tpu_torch.fec import dvb_s2x, fountain, ldpc, polar, tcm, turbo
+from r4w_tpu_torch.fec.convolutional import (conv_encode, map_decode, viterbi_decode,
+                                             viterbi_decode_mxu)
 from r4w_tpu_torch.gnss import acquisition, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.kernels import viterbi
@@ -117,6 +128,22 @@ ANALOG_BARS = {"AM-Broadcast": (30.0, 6.0), "FM-Broadcast": (30.0, 4.0),
                "NBFM": (35.0, 10.0)}                       # name: (SNR dB, mean |err| bar)
 FMCW_RATE_HZ, FMCW_RANGE_M, FMCW_SNR_DB = 1_000_000.0, 1500.0, 0.0
 BEACON_SNR_DB = 10.0
+CHANNEL_SAMPLES, CHANNEL_ITERS = 1 << 18, 16384  # bench.py:645's shape
+CHANNEL_SNR_DB = 20.0
+# tests/test_waveform_fleet.py:103-116 and tests/test_fleet_fading.py:20-33:
+# (waveform, sample rate, model, TDL profile, SNR dB, Doppler Hz, payload, key)
+FADING_CASES = (
+    ("OFDM", 1_000_000.0, "tdl_awgn", "EPA", 25.0, 5.0, NOISY_DATA, 11),
+    ("OFDM", 1_000_000.0, "freq_selective", "EVA", 25.0, 5.0, NOISY_DATA, 11),
+    ("LoRa-SF7", 125_000.0, "tdl_awgn", "EPA", 15.0, 2.0, b"\xa5\x3c", 3),
+    ("DSSS", 1_000_000.0, "tdl_awgn", "EPA", 18.0, 2.0, b"\xa5\x3c", 3),
+    ("BFSK", 250_000.0, "tdl_awgn", "EPA", 22.0, 2.0, b"\xa5\x3c", 3),
+)
+# tests/test_named_blocks.py:44-56: (rate, Eb/N0 dB), short frames, 40 iterations
+DVB_GATE_POINTS = (("1/4", 2.0), ("1/2", 3.0), ("3/4", 4.0), ("9/10", 6.5))
+DVB_GATE_ITERS = 40
+DVB_BENCH_FRAMES, DVB_BENCH_RATE, DVB_BENCH_EBN0_DB = 128, "1/2", 3.0
+TCM_GATE_BITS, TCM_GATE_EBN0_DB = 100_000, 5.0  # tests/test_fec.py:270
 
 
 def entry(device=DEFAULT_DEVICE):
@@ -591,8 +618,7 @@ def reference_awgn(samples: torch.Tensor, snr_db: float, seed: int) -> torch.Ten
     """`awgn` with the noise the reference's ``awgn(jax.random.key(seed),
     ...)`` draws for samples of this shape (`channel.threefry`, on the
     host), on the samples' device."""
-    noise = torch.from_numpy(threefry.complex_normal(seed, tuple(samples.shape)))
-    return awgn(samples, snr_db, noise=noise.to(samples.device))
+    return awgn(samples, snr_db, key=threefry.key(seed))
 
 
 def analog_error(got: np.ndarray, ref: np.ndarray) -> float:
@@ -725,3 +751,272 @@ def sincgars_data_roundtrip(device=DEFAULT_DEVICE, n_bytes: int = 2048, mode_bps
             "launches": {"viterbi_forward": viterbi.viterbi_forward.launches - before[0],
                          "viterbi_traceback": viterbi.viterbi_traceback.launches - before[1]},
             "device": str(device)}
+
+
+def channel_bench(device=DEFAULT_DEVICE, seed: int = 8, iters: int = CHANNEL_ITERS) -> dict:
+    """AWGN apply throughput: ``bench.py``'s ``bench_channel`` on the card.
+
+    2^18 complex64 samples from `np.random.default_rng(seed)` go through
+    `iters` chained applications of `awgn(·, 20 dB)` on Philox, each
+    times 1/√1.01 to undo the 1% power the noise adds, timed with CUDA
+    events after a short warm-up. Returns ``msamples_per_s``,
+    ``compute_s``, the shape and the final mean power (which must stay
+    finite and near the input's). ``bench.py`` also times a hardware-RNG
+    key of JAX's; that variant has no counterpart here."""
+    device = torch.device(device)
+    _require_cuda("channel_bench", device)
+    rng = np.random.default_rng(seed)
+    re = rng.standard_normal(CHANNEL_SAMPLES, dtype=np.float32)
+    im = rng.standard_normal(CHANNEL_SAMPLES, dtype=np.float32)
+    v0 = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = float(np.float32(1.0 / np.sqrt(1.01)))
+
+    def run(v, n):
+        for _ in range(n):
+            v = awgn(v, CHANNEL_SNR_DB, generator=gen) * scale
+        return torch.mean(v.real ** 2 + v.imag ** 2)
+
+    run(v0, 16)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    power = run(v0, iters)
+    end.record()
+    end.synchronize()
+    compute_s = start.elapsed_time(end) / 1e3
+    return {"msamples_per_s": CHANNEL_SAMPLES * iters / compute_s / 1e6,
+            "compute_s": compute_s, "samples": CHANNEL_SAMPLES, "iters": iters,
+            "mean_power": float(power), "device": str(device)}
+
+
+def fading_case(case, device=DEFAULT_DEVICE, generator: torch.Generator | None = None) -> dict:
+    """One `FADING_CASES` row on `device`: modulate its payload, apply its
+    channel (the reference's threefry draws for the row's key, or
+    `generator`'s), demodulate. Returns ``ok`` (the payload back) and the
+    bytes."""
+    name, rate, model, profile, snr, doppler, data, key = case
+    wf = create_waveform(name, rate, device)
+    cfg = ChannelConfig(model=model, snr_db=snr, sample_rate=rate, doppler_hz=doppler,
+                        tdl_profile=profile)
+    tx = wf.modulate(data)
+    rx = (apply_channel(tx, cfg, generator=generator) if generator is not None
+          else apply_channel(tx, cfg, key=threefry.key(key)))
+    got = wf.demodulate(rx).bits[: len(data)].cpu().numpy().astype(np.uint8).tobytes()
+    return {"ok": got == data, "bytes": got.hex()}
+
+
+def fading_gate(device=DEFAULT_DEVICE, seeds=range(20)) -> dict:
+    """OFDM, LoRa-SF7, DSSS and BFSK through TDL fading on `device`
+    (`FADING_CASES`: OFDM through ``tdl_awgn`` EPA and ``freq_selective``
+    EVA at 1 MS/s, 25 dB, 5 Hz Doppler, key 11; the others through EPA at
+    2 Hz, key 3), each on the reference's own draws for its key: the
+    payload must come back. Then, as information and not a gate, the share
+    of fresh Philox draws (``torch.Generator(device).manual_seed(s)`` for
+    `seeds`) on which each case decodes. Returns ``ok``, per-case
+    ``results`` and ``pass_rates``, keyed "name model"."""
+    device = resolve_device(device)
+    results, rates = {}, {}
+    for case in FADING_CASES:
+        label = f"{case[0]} {case[2]} {case[3]}"
+        results[label] = fading_case(case, device)
+        passed = sum(fading_case(case, device, torch.Generator(device=device).manual_seed(s))["ok"]
+                     for s in seeds)
+        rates[label] = passed / len(seeds)
+    return {"ok": all(r["ok"] for r in results.values()), "results": results,
+            "pass_rates": rates, "device": str(device)}
+
+
+def _bpsk(bits: torch.Tensor, rng: np.random.Generator, sigma: float) -> np.ndarray:
+    """(1 - 2·bits) + N(0, sigma²) on the host in float64, the JAX tests' channel."""
+    b = bits.cpu().numpy()
+    return (1 - 2.0 * b) + rng.normal(0, sigma, b.shape)
+
+
+def _ldpc_case(device) -> dict:
+    """tests/test_fec.py:133: the (96, 3, 6) code, 4 frames at 2 dB."""
+    code = ldpc.ldpc_code(ldpc.make_regular_ldpc(96, 3, 6), device)
+    rng = np.random.default_rng(6)
+    u = rng.integers(0, 2, (4, code.k))
+    c = ldpc.ldpc_encode(torch.from_numpy(u).to(device), code)
+    sigma = np.sqrt(1 / (2 * 10 ** (2.0 / 10)))
+    llr = torch.from_numpy((2 * _bpsk(c, rng, sigma) / sigma ** 2).astype(np.float32)).to(device)
+    hard, ok = ldpc.ldpc_decode(llr, code)
+    data = ldpc.ldpc_extract_data(hard, code).cpu().numpy()
+    return {"ok": bool(ok.all()) and np.array_equal(data, u), "decisions": hard.cpu().numpy(),
+            "frames_ok": int(ok.sum())}
+
+
+def _turbo_case(device) -> dict:
+    """tests/test_fec.py:148: N = 128 at 0 dB, 6 iterations."""
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 2, 128)
+    sys_, p1, p2, pi = turbo.turbo_encode(torch.from_numpy(bits).to(device))
+    sigma = np.sqrt(1 / (2 * 10 ** (0.0 / 10)))
+    llrs = [2 * _bpsk(x, rng, sigma) / sigma ** 2 for x in (sys_, p1, p2)]
+    raw = int(((llrs[0] < 0).astype(int) != bits).sum())
+    hard, _ = turbo.turbo_decode(*[torch.from_numpy(x.astype(np.float32)).to(device)
+                                   for x in llrs], pi)
+    errors = int((hard.cpu().numpy() != bits).sum())
+    return {"ok": raw > 0 and errors == 0, "decisions": hard.cpu().numpy(), "raw_errors": raw,
+            "errors": errors}
+
+
+def _polar_case(device) -> dict:
+    """tests/test_fec.py:163: (128, 64), clean and at 6 dB."""
+    n, k = 128, 64
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 2, k)
+    cw = polar.polar_encode(torch.from_numpy(bits).to(device), n, k)
+    clean = polar.polar_decode((1.0 - 2.0 * cw.cpu().numpy()) * 10.0, n, k)
+    sigma = np.sqrt(1 / (2 * 10 ** (6.0 / 10)))
+    noisy = polar.polar_decode(2 * _bpsk(cw, rng, sigma) / sigma ** 2, n, k)
+    errors = int((noisy != bits).sum())
+    return {"ok": np.array_equal(clean, bits) and errors == 0, "decisions": noisy,
+            "codeword": cw.cpu().numpy(), "errors": errors}
+
+
+def _conv_case(device) -> dict:
+    """tests/test_fec.py:195: K=7 rate 1/2, 2000 bits at 3 dB, coded BER
+    below uncoded BPSK's."""
+    rng = np.random.default_rng(9)
+    n_bits, ebn0_db = 2000, 3.0
+    bits = rng.integers(0, 2, n_bits)
+    coded = conv_encode(torch.from_numpy(bits).to(device))
+    sigma_c = np.sqrt(1 / (2 * 10 ** ((ebn0_db - 3.0) / 10)))
+    noisy = torch.from_numpy(_bpsk(coded, rng, sigma_c).astype(np.float32)).to(device)
+    dec = viterbi_decode(noisy, soft=True).cpu().numpy()
+    coded_ber = float((dec != bits).mean())
+    sigma_u = np.sqrt(1 / (2 * 10 ** (ebn0_db / 10)))
+    rx_u = (1 - 2.0 * bits) + rng.normal(0, sigma_u, n_bits)
+    uncoded_ber = float(((rx_u < 0).astype(int) != bits).mean())
+    return {"ok": coded_ber < uncoded_ber, "decisions": dec, "coded_ber": coded_ber,
+            "uncoded_ber": uncoded_ber}
+
+
+def _tcm_case(device, n_bits: int = TCM_GATE_BITS) -> dict:
+    """tests/test_fec.py:270: TCM below half uncoded QPSK's BER at 5 dB,
+    QPSK above 1e-3, over `n_bits` bits (seed 2); with the received
+    symbols and TCM's decisions."""
+    run = tcm.tcm_coding_gain_run(TCM_GATE_EBN0_DB, n_bits, seed=2, device=device)
+    tcm_ber, qpsk_ber = run["tcm_ber"], run["qpsk_ber"]
+    return {"ok": tcm_ber < 0.5 * qpsk_ber and qpsk_ber > 1e-3, "decisions": run["decisions"],
+            "symbols": run["rx"].cpu().numpy(), "tcm_ber": tcm_ber, "qpsk_ber": qpsk_ber,
+            "bits": n_bits}
+
+
+def _dvb_short_cases(device) -> dict:
+    """tests/test_named_blocks.py:44-56 on their module's ``RNG =
+    np.random.default_rng(42)``, replayed in the file's order (its parity
+    test draws one 2/3 frame first): a short frame a rate, decoded in 40
+    iterations, parity ok and equal to the bits sent."""
+    rng = np.random.default_rng(42)
+    rng.integers(0, 2, dvb_s2x.info_bits("2/3", "short"))
+    out = {}
+    for rate, ebn0 in DVB_GATE_POINTS:
+        u = rng.integers(0, 2, dvb_s2x.info_bits(rate, "short")).astype(np.int32)
+        c = dvb_s2x.encode(torch.from_numpy(u).to(device), rate, "short")
+        esn0 = 10 ** (ebn0 / 10) * dvb_s2x.CODE_RATES[rate]
+        y = _bpsk(c, rng, np.sqrt(1 / (2 * esn0)))
+        hard, ok = dvb_s2x.decode(torch.from_numpy((4 * esn0 * y).astype(np.float32)).to(device),
+                                  rate, "short", iters=DVB_GATE_ITERS)
+        hard = hard.cpu().numpy()
+        out[f"dvb_s2x {rate}"] = {"ok": bool(ok) and np.array_equal(hard, u), "decisions": hard,
+                                  "ebn0_db": ebn0}
+    return out
+
+
+def _lt_cases(device) -> dict:
+    """tests/test_fountain_wavelet.py:21-44: k = 32 of n = 48 with all
+    symbols, and k = 24 of n = 48 with a third of them erased."""
+    out = {}
+    for label, seed, k, n, width, lt_seed, kept in (("lt overhead", 0, 32, 48, 64, 5, None),
+                                                    ("lt erasures", 1, 24, 48, 16, 9, 36)):
+        rng = np.random.default_rng(seed)
+        data = rng.integers(0, 2, (k, width)).astype(np.uint8)
+        enc = fountain.lt_encode(torch.from_numpy(data).to(device), n, seed=lt_seed)
+        g = fountain.lt_generator(k, n, seed=lt_seed)
+        keep = rng.permutation(n)[:kept] if kept else np.arange(n)
+        dec, ok = fountain.lt_decode(enc.cpu().numpy()[keep], g[keep], k)
+        out[label] = {"ok": bool(ok) and np.array_equal(dec, data), "decisions": dec}
+    return out
+
+
+def _map_case(device) -> dict:
+    """tests/test_e2e_receiver.py:139: MAP LLRs of a repetition-then-K=7
+    chain, soft-combined, no worse than hard combining and below 5% errors."""
+    rng = np.random.default_rng(11)
+    bits = rng.integers(0, 2, 256).astype(np.int32)
+    rep = np.repeat(bits, 2)
+    coded = conv_encode(torch.from_numpy(rep).to(device)).cpu().numpy()
+    soft = (1.0 - 2.0 * coded).astype(np.float32)
+    soft += 0.8 * rng.standard_normal(len(soft)).astype(np.float32)
+    llr, hard_inner = map_decode(torch.from_numpy(soft).to(device))
+    llr = llr.cpu().numpy()[: len(rep)]
+    soft_dec = (llr.reshape(-1, 2).sum(1) < 0).astype(np.int32)
+    hard_dec = hard_inner.cpu().numpy()[: len(rep)].reshape(-1, 2)[:, 0]
+    err_soft, err_hard = int((soft_dec != bits).sum()), int((hard_dec != bits).sum())
+    return {"ok": err_soft <= err_hard and err_soft < 0.05 * len(bits), "decisions": soft_dec,
+            "llr": llr, "errors_soft": err_soft, "errors_hard": err_hard}
+
+
+def coded_link_gate(device=DEFAULT_DEVICE, tcm_bits: int = TCM_GATE_BITS) -> dict:
+    """The JAX FEC tests' own inputs (their numpy seeds) through the port's
+    codecs on `device`, each to its test's bar: LDPC (96, 3, 6) at 2 dB,
+    turbo N = 128 at 0 dB, polar (128, 64), the convolutional coded-BER
+    gate, TCM's gain at 5 dB over `tcm_bits` bits (the test's 100,000 by
+    default), DVB-S2X short frames at four rates, LT with and without
+    erasures, and MAP decoding into a soft chain. The host makes each
+    test's noise from the codewords, as the tests do. Returns ``ok`` and
+    per-case ``results`` (``ok``, the decisions, the case's numbers)."""
+    device = resolve_device(device)
+    results = {"ldpc": _ldpc_case(device), "turbo": _turbo_case(device),
+               "polar": _polar_case(device), "conv": _conv_case(device),
+               "tcm": _tcm_case(device, tcm_bits), **_dvb_short_cases(device),
+               **_lt_cases(device), "map": _map_case(device)}
+    return {"ok": all(r["ok"] for r in results.values()), "results": results,
+            "device": str(device)}
+
+
+def dvb_s2x_frames(device=DEFAULT_DEVICE, frames: int = DVB_BENCH_FRAMES,
+                   rate: str = DVB_BENCH_RATE, ebn0_db: float = DVB_BENCH_EBN0_DB,
+                   seed: int = 0):
+    """(bits (frames, k) int32, channel LLRs (frames, 64,800) float32) of
+    normal frames on `device`: Philox bits from `seed`, BPSK through AWGN
+    at `ebn0_db`, LLR = 4·Es/N0·y."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = dvb_s2x.info_bits(rate, "normal")
+    bits = torch.randint(0, 2, (frames, k), generator=gen, device=device, dtype=SYMBOL_DTYPE)
+    c = dvb_s2x.encode(bits, rate, "normal")
+    esn0 = 10 ** (ebn0_db / 10) * dvb_s2x.CODE_RATES[rate]
+    noise = torch.randn(c.shape, generator=gen, device=device, dtype=REAL_DTYPE)
+    y = (1.0 - 2.0 * c.to(REAL_DTYPE)) + noise * float(np.sqrt(1 / (2 * esn0)))
+    return bits, y * float(4 * esn0)
+
+
+def dvb_s2x_bench(device=DEFAULT_DEVICE, frames: int = DVB_BENCH_FRAMES,
+                  iters: int = DVB_GATE_ITERS, seed: int = 0) -> dict:
+    """A batch of `frames` DVB-S2X normal frames (64,800 coded bits, rate
+    1/2) at 3.0 dB Eb/N0 decoded in one call of `iters` min-sum iterations
+    on the card (messages (frames, 32,400, 15) float32), timed with CUDA
+    events after a one-frame warm-up that builds the layout. Returns
+    ``info_mbps`` (information bits decoded per second), ``compute_s``,
+    ``frames``, ``frames_ok`` (parity ok and equal to the bits sent) and
+    ``ok`` (every frame)."""
+    device = torch.device(device)
+    _require_cuda("dvb_s2x_bench", device)
+    bits, llr = dvb_s2x_frames(device, frames, seed=seed)
+    dvb_s2x.decode(llr[:1], DVB_BENCH_RATE, "normal", iters=1)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    hard, ok = dvb_s2x.decode(llr, DVB_BENCH_RATE, "normal", iters=iters)
+    end.record()
+    end.synchronize()
+    compute_s = start.elapsed_time(end) / 1e3
+    good = ok & torch.all(hard == bits, dim=-1)
+    frames_ok = int(good.sum())
+    return {"info_mbps": bits.numel() / compute_s / 1e6, "compute_s": compute_s,
+            "frames": frames, "frames_ok": frames_ok, "ok": frames_ok == frames,
+            "info_bits": bits.shape[-1], "iters": iters, "device": str(device)}

@@ -14,6 +14,11 @@ never a matmul: with ±1 expected values the products and, at R = 2, the
 single add are exact, so the metrics equal the reference's bit for bit; at
 R = 3 the two adds round as the reference's einsum does (the K = 7 rate-1/3
 code's metrics and decodes are held against it bit for bit).
+`map_decode` is the max-log-MAP (BCJR) soft-output decoder: its forward
+and backward recursions are step loops over time, each step vectorised
+over the states through predecessor tables, and the LLRs of all steps
+are computed at once; float32 adds and maxes in the reference's order, so
+the LLRs equal the reference's.
 Functions follow the device of a tensor input; other inputs (numpy
 arrays, lists) are put on the CUDA card.
 """
@@ -152,3 +157,61 @@ def depuncture(punctured, pattern, total_len: int, fill=0.0) -> torch.Tensor:
     out = torch.full((*punctured.shape[:-1], total_len), fill, dtype=REAL_DTYPE,
                      device=punctured.device)
     return out.index_copy(-1, keep, punctured)
+
+
+def map_decode(received, constraint: int = 7, polys: tuple[int, ...] = K7_POLYS,
+               terminated: bool = True):
+    """Max-log-MAP (BCJR) soft-output decode -> (LLRs (..., N_info) float32,
+    LLR > 0 meaning bit 0, and hard decisions (..., N_info) int32).
+
+    received: soft values in ±1 per coded bit (+1 ~ bit 0), as
+    `viterbi_decode(soft=True)` takes them; leading axes are frames.
+    terminated=True starts β in state 0 and drops the K-1 flush bits;
+    terminated=False starts β uniform and keeps every bit.
+    """
+    polys = tuple(polys)
+    r = len(polys)
+    s = 1 << (constraint - 1)
+    rx = to_tensor(received, REAL_DTYPE)
+    lead = rx.shape[:-1]
+    n_steps = rx.shape[-1] // r
+    rx = rx[..., : n_steps * r].reshape(lead.numel(), n_steps, r)
+    code = viterbi_kernels._code_index_t(constraint, polys, rx.device)  # (S, 2)
+    # bm[t, l, st, b] = metric of the codeword leaving st on input b
+    bm = _branch_metrics(rx).permute(0, 2, 1).index_select(-1, code.reshape(-1))
+    bm = bm.reshape(n_steps, rx.shape[0], s, 2)
+    _, next_np = _trellis(constraint, polys)
+    nxt = torch.from_numpy(next_np.reshape(-1).astype(np.int64)).to(rx.device)
+    # the two (st, b) into target s' = b·S/2 + m are (2m, b) and (2m+1, b)
+    target = torch.arange(s, device=rx.device)
+    into_state = torch.stack([2 * (target % (s // 2)), 2 * (target % (s // 2)) + 1], dim=-1)
+    into_bit = (target // (s // 2))[:, None].expand(s, 2)
+    into = (into_state * 2 + into_bit).reshape(-1)
+    bm_into = bm.reshape(n_steps, -1, 2 * s).index_select(-1, into).reshape(bm.shape)
+
+    floor = viterbi_kernels.UNREACHED  # the start metric of every state but 0
+    alpha = torch.full(bm.shape[1:-1], floor, dtype=REAL_DTYPE, device=rx.device)
+    alpha[:, 0] = 0.0
+    alphas = []
+    for t in range(n_steps):
+        alphas.append(alpha)
+        cand = alpha.index_select(-1, into_state.reshape(-1)).reshape(bm.shape[1:]) + bm_into[t]
+        new = torch.clamp_min(torch.amax(cand, dim=-1), floor)
+        alpha = new - torch.amax(new, dim=-1, keepdim=True)
+
+    beta = torch.full_like(alpha, floor) if terminated else torch.zeros_like(alpha)
+    if terminated:
+        beta[:, 0] = 0.0
+    betas = [beta]
+    for t in range(n_steps - 1, 0, -1):
+        new = torch.amax(bm[t] + beta.index_select(-1, nxt).reshape(bm.shape[1:]), dim=-1)
+        beta = new - torch.amax(new, dim=-1, keepdim=True)
+        betas.append(beta)
+    alphas, betas = torch.stack(alphas), torch.stack(betas[::-1])  # betas[t] = β_{t+1}
+
+    metric = (alphas[..., None] + bm) + betas.index_select(-1, nxt).reshape(bm.shape)
+    llr = (torch.amax(metric[..., 0], dim=-1) - torch.amax(metric[..., 1], dim=-1)).T
+    if terminated:
+        llr = llr[:, : n_steps - (constraint - 1)]
+    llr = llr.reshape(*lead, llr.shape[-1])
+    return llr, (llr < 0).to(SYMBOL_DTYPE)

@@ -22,10 +22,10 @@ import torch
 from r4w_tpu.channel import awgn as ref_awgn
 from r4w_tpu.channel import channel as ref_channel
 from r4w_tpu.waveforms import base as ref_base
-from r4w_tpu.waveforms import list_waveforms as ref_list_waveforms
 from r4w_tpu_torch import entry
-from r4w_tpu_torch.channel import threefry
+from r4w_tpu_torch.channel import channel, threefry
 from r4w_tpu_torch.waveforms import base, create_waveform, list_waveforms
+from torch_fleet_parity import ref_own_registry, ref_own_waveforms
 
 CPU = torch.device("cpu")
 # The names whose bytes the reference's probe (tools/device_sweep.py) gets
@@ -36,16 +36,38 @@ NORMAL_RTOL = 3e-7  # measured 2.4e-7 over 1e6 draws: one or two float32 ulps
 
 
 def test_factory_order_and_aliases_equal_reference():
-    assert list_waveforms() == ref_list_waveforms() and len(list_waveforms()) == 50
-    assert set(base._REGISTRY) == set(ref_base._REGISTRY)
-    ref_canonical = {ref_base._REGISTRY[ref_base._norm(n)]: n for n in ref_list_waveforms()}
+    assert list_waveforms() == ref_own_waveforms() and len(list_waveforms()) == 50
+    assert set(base._REGISTRY) == set(ref_own_registry())
+    ref_canonical = {ref_base._REGISTRY[ref_base._norm(n)]: n for n in ref_own_waveforms()}
     canonical = {base._REGISTRY[base._norm(n)]: n for n in list_waveforms()}
-    for alias, builder in ref_base._REGISTRY.items():
+    for alias, builder in ref_own_registry().items():
         assert canonical[base._REGISTRY[alias]] == ref_canonical[builder], alias
     for name in list_waveforms():
         wf, ref = create_waveform(name, device=CPU), ref_base.create_waveform(name)
         assert wf.info().name == ref.info().name, name
     assert create_waveform("GPS-L1CA-PRN7", device=CPU).prn == 7
+
+
+def test_factory_comparison_ignores_a_name_registered_by_a_plugin():
+    """A plugin's name in the reference's process-global registry (as
+    tests/test_mesh_registry.py leaves one) does not enter the comparison:
+    the port still lists the reference's own 50 names in its order."""
+    def build(sample_rate):  # the module of a plugin that registers a name
+        raise AssertionError("never built")
+
+    build.__module__ = "r4w_tpu_plugin_throwaway"
+    before = ref_base.list_waveforms()
+    ref_base.register_waveform("THROWAWAY-WAVE", ("throwaway_alias",))(build)
+    try:
+        assert ref_base.list_waveforms() == before + ["THROWAWAY-WAVE"]
+        assert ref_own_waveforms() == list_waveforms() and len(ref_own_waveforms()) == 50
+        assert set(ref_own_registry()) == set(base._REGISTRY)
+        assert "THROWAWAYWAVE" not in ref_own_registry()
+    finally:
+        ref_base._CANONICAL.remove("THROWAWAY-WAVE")
+        for alias in ("THROWAWAYWAVE", "THROWAWAYALIAS"):
+            del ref_base._REGISTRY[alias]
+    assert ref_base.list_waveforms() == before
 
 
 def _reference_gate_tables() -> dict:
@@ -84,7 +106,7 @@ def test_threefry_draws_equal_jax(seed, n):
     got = threefry.normal(k, (n,))
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=NORMAL_RTOL, atol=0)
-    noise = threefry.complex_normal(seed, (n,))
+    noise = channel._complex_normal((n,), 1.0, key=k, device=CPU).numpy()
     want = np.asarray(ref_channel._complex_normal(jax.random.key(seed), (n,), 1.0))
     np.testing.assert_allclose(noise.real, want.real, rtol=NORMAL_RTOL, atol=0)
     np.testing.assert_allclose(noise.imag, want.imag, rtol=NORMAL_RTOL, atol=0)
@@ -145,7 +167,7 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(ref_list_waveforms()))
+@pytest.mark.parametrize("name", ref_own_waveforms())
 def test_sweep_decisions_on_card_equal_cpu(name):
     dev = _card()
     iq, res = entry.sweep_round(name, dev)

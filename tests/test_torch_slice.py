@@ -20,17 +20,21 @@ import torch
 
 from r4w_tpu.channel import channel as ref_channel
 from r4w_tpu.waveforms import create_waveform as ref_create_waveform
-from r4w_tpu.waveforms import list_waveforms as ref_list_waveforms
 from r4w_tpu.waveforms import lora as ref_lora
 from r4w_tpu_torch import WaveformFactory, create_waveform, list_waveforms
 from r4w_tpu_torch.channel import awgn
 from r4w_tpu_torch.core import types
 from r4w_tpu_torch import arq, ber
-from r4w_tpu_torch.entry import (ber_gate, ddc_bench, device_sweep, dual_pvt, entry,
-                                 fleet_noisy_gate, galileo_pvt, glonass_track, gps_pvt_fix,
-                                 lora_packet_roundtrip, lora_sweep, packet_capture, pcps_bench,
-                                 pcps_gcorr_bench, sincgars_data_roundtrip, sweep_lanes,
-                                 sweep_round, viterbi_bench, waterfall_snr_db)
+from r4w_tpu_torch.channel import (flat_doppler_shift, gaussian_doppler_fading, jakes_fading,
+                                   theoretical_ber_awgn)
+from r4w_tpu_torch.entry import (ber_gate, channel_bench, coded_link_gate, ddc_bench,
+                                 device_sweep, dual_pvt, dvb_s2x_bench, dvb_s2x_frames, entry,
+                                 fading_case, fading_gate, fleet_noisy_gate, galileo_pvt,
+                                 glonass_track, gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
+                                 packet_capture, pcps_bench, pcps_gcorr_bench,
+                                 sincgars_data_roundtrip, sweep_lanes, sweep_round, viterbi_bench,
+                                 waterfall_snr_db)
+from r4w_tpu_torch.fec.tcm import tcm_coding_gain_demo
 from r4w_tpu_torch.gnss import GnssScenario, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, init_state, inav
 from r4w_tpu_torch.gnss.gps_pvt_fix import main_code_phase, main_decoded
@@ -38,6 +42,7 @@ from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, 
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora_waveform import LoRaWaveform
 from r4w_tpu_torch.waveforms.milstd188110 import MilStd188110
+from torch_fleet_parity import ref_own_waveforms
 
 REPO = Path(__file__).resolve().parents[1]
 SNRS_DB = np.array([-12.0, -8.0, -4.0, 0.0], np.float32)
@@ -76,7 +81,8 @@ def test_quick_start_roundtrip():
 
 
 def test_factory_names_aliases_and_unknowns():
-    assert list_waveforms() == ref_list_waveforms()  # all 50, in the reference's order
+    assert list_waveforms() == ref_own_waveforms()  # all 50, in the reference's order
+    assert len(list_waveforms()) == 50
     assert WaveformFactory.list() == list_waveforms()
     assert WaveformFactory.create("css").params.sf == 7
     assert create_waveform("lora_sf12").params.sf == 12
@@ -152,13 +158,16 @@ def test_entry_points_default_to_the_card():
     for fn in (create_waveform, entry, lora_sweep, viterbi_bench, ddc_bench, lora.modulate,
                gps_pvt_fix, pcps_bench, galileo_pvt, dual_pvt, glonass_track, ber_gate,
                lora_packet_roundtrip, packet_capture, pcps_gcorr_bench, device_sweep, sweep_round,
-               fleet_noisy_gate, sincgars_data_roundtrip):
+               fleet_noisy_gate, sincgars_data_roundtrip, channel_bench, fading_case,
+               fading_gate, coded_link_gate, dvb_s2x_frames, dvb_s2x_bench):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
     for fn in (GnssScenario, init_state, main_decoded, main_code_phase, gal.main, dual.main,
                glo.main, gal.decode_sv_channel, inav.decode_stream, inav.decode_part,
                inav.decode_page, ber.linear_ber_monte_carlo, ber.waveform_ber_monte_carlo,
                ber.ber_acceptance_report, arq.HarqSender, arq.HarqReceiver,
-               arq.harq_roundtrip_demo):  # None: DEFAULT_DEVICE
+               arq.harq_roundtrip_demo, jakes_fading, gaussian_doppler_fading,
+               flat_doppler_shift, theoretical_ber_awgn,
+               tcm_coding_gain_demo):  # None: DEFAULT_DEVICE
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
@@ -194,6 +203,11 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.waveforms, r4w_tpu_torch.fec.galois, r4w_tpu_torch.fec.block\n"
             "import r4w_tpu_torch.ops.ofdm, r4w_tpu_torch.channel.threefry\n"
             "import r4w_tpu_torch.waveforms.milfh_waveforms, r4w_tpu_torch.waveforms.link16\n"
+            "import r4w_tpu_torch.channel, r4w_tpu_torch.channel.doppler\n"
+            "import r4w_tpu_torch.channel.tdl, r4w_tpu_torch.ops, r4w_tpu_torch.ops.impairments\n"
+            "import r4w_tpu_torch.fec.interleave, r4w_tpu_torch.fec.ldpc\n"
+            "import r4w_tpu_torch.fec.dvb_s2x, r4w_tpu_torch.fec.turbo, r4w_tpu_torch.fec.polar\n"
+            "import r4w_tpu_torch.fec.tcm, r4w_tpu_torch.fec.fountain\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from r4w_tpu.channel import awgn as ref_awgn
+from r4w_tpu.waveforms import base as ref_base
 from r4w_tpu.waveforms import create_waveform as ref_create_waveform
 from r4w_tpu_torch.entry import ANALOG_BARS, BEACON_SNR_DB, CW_SNR_DB, DIGITAL_SNR, NOISY_DATA
 from r4w_tpu_torch.waveforms import create_waveform
@@ -39,6 +40,25 @@ ANALOG_CODE_TOL = 1
 # Beacon metadata counts envelope zero crossings per 50 ms window (10 Hz a
 # crossing); an ulp of |x| may move a crossing near zero.
 BEACON_FREQ_TOL_HZ = 20.0
+
+
+REF_OWN_MODULES = "r4w_tpu.waveforms."  # a plugin's module is r4w_tpu_plugin_<name>
+
+
+def ref_own_registry() -> dict:
+    """The reference's registry (normalised name or alias -> builder) less
+    what plugins added: the entries whose builder's module is one of the
+    reference's own waveform modules. A test that loads a plugin
+    (tests/test_mesh_registry.py) registers its names in the reference's
+    process-global registry and never removes them."""
+    return {alias: builder for alias, builder in ref_base._REGISTRY.items()
+            if builder.__module__.startswith(REF_OWN_MODULES)}
+
+
+def ref_own_waveforms() -> list[str]:
+    """The reference's canonical names in registration order, less plugins'."""
+    own = ref_own_registry()
+    return [name for name in ref_base.list_waveforms() if ref_base._norm(name) in own]
 
 
 def gate_snr(name: str) -> float:
