@@ -67,7 +67,21 @@ bar, decisions equal to the CPU's, each Viterbi kernel launched twice,
 by the convolutional gate and TCM), the launches and time of one BCJR,
 turbo, MAP, LDPC, DVB-S2X and TCM decode; phase 35 ``dvb_s2x_bench()``
 (128 normal frames at rate 1/2, 3.0 dB, 40 iterations: every frame
-decoded) in information Mbit/s. Each
+decoded) in information Mbit/s. Then synchronisation, equalisation and
+AGC: phase 36 holds every function of the slice's eight modules (pulse
+shaping, the filter recursions, measurement, resampling, sync, sync2,
+equalizers, AGC) on the card against the port's CPU result on the same
+numpy-made inputs (2^14 samples; the loops at their reference tests'
+sizes: pfb_clock_sync, MLSE, the DFE and the integer loops equal, floats
+within the stated tolerances) and prints each loop's launches and host
+time a step; phase 37 runs ``composed_receiver_gate()``, the reference's
+composed QPSK receiver, at its 1,024 bits and at a 1,500-byte packet
+(every bar, every decision equal to a CPU run of the gate, fir_decimate
+launched twice and each Viterbi kernel once a gate, the timing and phase
+hypotheses as the lanes of one decode), with one gate under the
+profiler; phase 38 holds the three kernels against their plain versions
+at the gate's shapes (FIR (1, 48,256) K = 33; Viterbi bm (12,006, 4, 88))
+and times them. Each
 phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
@@ -94,6 +108,7 @@ from r4w_tpu_torch import arq, ber, create_waveform
 from r4w_tpu_torch import channel as chan
 from r4w_tpu_torch.channel import awgn, threefry
 from r4w_tpu_torch.core import windows
+from r4w_tpu_torch.core.hostio import cis
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC_SAMPLES,
                                  DDC_STREAMS, PACKET_GAP_SAMPLES, PCPS_CONFIG, PCPS_RATE_HZ,
                                  SWEEP_PAYLOAD_BYTES, SWEEP_RATE_HZ, SWEEP_SNRS_DB,
@@ -104,7 +119,8 @@ from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC
                                  glonass_track, gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
                                  noisy_pass_rates, packet_capture, pcps_bench, pcps_gcorr_bench,
                                  pcps_inputs, sincgars_data_roundtrip, sweep_lanes, sweep_round,
-                                 TCM_GATE_BITS, viterbi_bench)
+                                 TCM_GATE_BITS, viterbi_bench, composed_receiver_gate,
+                                 PACKET_INFO_BITS, QPSK_POINTS, RECEIVER_INFO_BITS, RECEIVER_SPS)
 from r4w_tpu_torch.fec import convolutional, crc, dvb_s2x, ldpc, tcm, turbo
 from r4w_tpu_torch.gnss import acquisition, inav, scenario, tracking
 from r4w_tpu_torch.gnss import dual_pvt as dual
@@ -115,7 +131,10 @@ from r4w_tpu_torch.gnss.ephemeris import circular_ephemeris_for_position
 from r4w_tpu_torch.gnss import prn as gnss_prn
 from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
-from r4w_tpu_torch.ops import filters, filters2, impairments, resample, stream_math
+from r4w_tpu_torch.ops import agc as agc_ops
+from r4w_tpu_torch.ops import sync as ops_sync
+from r4w_tpu_torch.ops import (equalizers, filters, filters2, impairments, measure, pulse, resample,
+                               spreading, stream_math, sync2)
 from r4w_tpu_torch.profiling import breakdown
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
@@ -229,6 +248,16 @@ CHANNEL_CARD_TOL = 1e-5
 CHANNEL_CHECK_SHAPE = (4, 1 << 16)
 # the Viterbi launches of coded_link_gate(): the convolutional gate's decode and TCM's
 CODED_GATE_VITERBI = 2
+CARD = "cuda"              # the device type phase 36 requires of the card's results
+SLICE_SAMPLES = 1 << 14    # phase 36's feed-forward inputs
+SLICE_CARD_TOL = 1e-5      # max|card - CPU| / max|CPU|: sums, FFTs and FIR taps in another order
+SLICE_CUMSUM_TOL = 2e-5    # differences of float32 cumulative sums (Schmidl-Cox)
+SLICE_LOOP_TOL = 1e-4      # the recursions, tests/test_torch_resample_sync.py's LOOP_TOL
+SLICE_RLS_TOL = 5e-5       # RLS, tests/test_torch_equalizers_agc.py's RLS_TOL
+LOOP_PROFILE_STEPS = (64, 192)  # a recursion's launches a step: the slope between these
+FIXED_STEP_LOOPS = {"sync2.delay_lock_loop"}  # 64 steps whatever the input
+RECEIVER_FIR_LAUNCHES = 2  # the gate's shaping filter and matched filter
+RECEIVER_HYPOTHESES = 88   # offsets 0-21 × 4 rotations, lanes of one Viterbi decode
 
 
 def phase(name: str, message: str) -> None:
@@ -2055,6 +2084,412 @@ def drive_dvb_bench(dev: torch.device) -> dict:
     return {"bench": bench, "profile": prof}
 
 
+def slice_inputs(seed: int = 36) -> dict:
+    """Phase 36's CPU inputs from numpy: 2^14 samples for the feed-forward
+    functions, and each scalar loop's reference-test input."""
+    rng = np.random.default_rng(seed)
+    n = SLICE_SAMPLES
+
+    def iq(*shape):
+        return torch.from_numpy((rng.standard_normal(shape)
+                                 + 1j * rng.standard_normal(shape)).astype(np.complex64))
+
+    qpsk = torch.from_numpy(QPSK_POINTS)
+    sym_idx = torch.from_numpy(rng.integers(0, 4, n // 4))
+    rrc = pulse.shape_symbols(qpsk[sym_idx], pulse.root_raised_cosine_taps(4, 8, 0.35), 4)[:n]
+    isi = torch.from_numpy(np.convolve(QPSK_POINTS[sym_idx.numpy()], [1.0, 0.4, -0.2])
+                           .astype(np.complex64)[: n // 4])
+    return {"x": iq(n), "xr": torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+            "xi": torch.from_numpy(rng.integers(-8, 9, n).astype(np.float32)),
+            "rrc": (rrc + 0.05 * iq(n)).to(torch.complex64), "syms": qpsk[sym_idx],
+            "isi": (isi + 0.02 * iq(n // 4)).to(torch.complex64), "pre": iq(64),
+            "bits": torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)),
+            "code": torch.from_numpy(rng.integers(0, 2, 24).astype(np.int32)),
+            "err": torch.from_numpy((0.3 * rng.standard_normal(n) + 0.05).astype(np.float32)),
+            "pn": torch.from_numpy(spreading.m_sequence(7).astype(np.float32))}
+
+
+def slice_cases(v: dict) -> dict:
+    """Every function of the eight modules as label: (call on the inputs `v`,
+    tolerance); 0 means exact. Loops have their own table (`slice_loops`)."""
+    x, xr, rrc, syms, pn = v["x"], v["xr"], v["rrc"], v["syms"], v["pn"]
+    rrc_taps = pulse.root_raised_cosine_taps(4, 8, 0.35)
+    probe = torch.sign(xr[:255]).to(torch.complex64)
+    tone = torch.exp(2j * math.pi * 0.0123 * torch.arange(x.shape[0], device=x.device)).to(
+        torch.complex64)
+    ch = resample.pfb_channelizer(x, 8)
+    wola = resample.wola_channelize(x, 8, 4)
+    coeffs = measure.dwt(xr, "db4", 3)
+    ff = SLICE_CARD_TOL
+    return {
+        "pulse.shape_symbols": (lambda: pulse.shape_symbols(syms, rrc_taps, 4), ff),
+        "pulse.matched_filter": (lambda: pulse.matched_filter(x, rrc_taps), ff),
+        "filters.cic_decimator": (lambda: filters.cic_decimator(v["xi"][:256], 4, 3), 0),
+        "filters.median_filter": (lambda: filters.median_filter(xr, 4), 0),
+        "measure.periodogram_psd": (lambda: measure.periodogram_psd(x), ff),
+        "measure.welch_psd": (lambda: measure.welch_psd(x), ff),
+        "measure.stft": (lambda: measure.stft(x), ff),
+        "measure.goertzel_power": (lambda: measure.goertzel_power(x, 5), ff),
+        "measure.channel_capacity_awgn": (lambda: measure.channel_capacity_awgn(
+            xr[:64] * 10, 1e6), ff),
+        "measure.eye_diagram": (lambda: measure.eye_diagram(x, 8), 0),
+        "measure.signal_power_db": (lambda: measure.signal_power_db(x), ff),
+        "measure.dwt": (lambda: measure.dwt(xr, "db4", 3), ff),
+        "measure.idwt": (lambda: measure.idwt(coeffs, "db4"), ff),
+        "measure.dwt_denoise": (lambda: measure.dwt_denoise(xr, "db4", 3), ff),
+        "measure.moving_variance": (lambda: measure.moving_variance(xr, 33), ff),
+        "measure.moving_minmax": (lambda: measure.moving_minmax(xr, 33), 0),
+        "measure.moving_autocorrelation": (lambda: measure.moving_autocorrelation(x, 16), ff),
+        "measure.constellation_persistence": (lambda: measure.constellation_persistence(x), 0),
+        "measure.signal_quality": (lambda: measure.signal_quality(rrc[:4096:4], syms[:1024]), ff),
+        "measure.channel_sound": (lambda: measure.channel_sound(x[:255] + probe, probe, 32), ff),
+        "resample.arbitrary_resample": (lambda: resample.arbitrary_resample(x, 1.5), ff),
+        "resample.pfb_channelizer": (lambda: ch, ff),
+        "resample.pfb_synthesizer": (lambda: resample.pfb_synthesizer(ch), ff),
+        **{f"resample.farrow_resample order {o}": (
+            lambda o=o: resample.farrow_resample(x, 1.25, o), ff) for o in (1, 2, 3)},
+        "resample.wola_channelize": (lambda: wola, ff),
+        "resample.wola_synthesize": (lambda: resample.wola_synthesize(wola, 4), ff),
+        "sync.cfo_estimate": (lambda: ops_sync.cfo_estimate(rrc * tone, 1e5, 4), ff),
+        "sync.cfo_correct": (lambda: ops_sync.cfo_correct(x, 123.0, 1e5), ff),
+        "sync.gardner_ted": (lambda: ops_sync.gardner_ted(rrc, 4), ff),
+        "sync.mueller_muller_ted": (lambda: ops_sync.mueller_muller_ted(rrc, 4), ff),
+        "sync.early_late_gate": (lambda: ops_sync.early_late_gate(rrc, 4), ff),
+        "sync.best_timing_offset": (lambda: ops_sync.best_timing_offset(rrc, 4), 0),
+        "sync.correlate_sync": (lambda: ops_sync.correlate_sync(x, x[1000:1064]), ff),
+        "sync.schmidl_cox": (lambda: ops_sync.schmidl_cox(x, 64), SLICE_CUMSUM_TOL),
+        "sync.access_code_correlate": (
+            lambda: ops_sync.access_code_correlate(v["bits"], v["code"]), 0),
+        "sync.access_code_detect": (
+            lambda: ops_sync.access_code_detect(v["bits"], v["code"], 4), 0),
+        "sync.pn_sync_correlate": (lambda: ops_sync.pn_sync_correlate(
+            torch.roll(pn, 37).repeat(4) + 0.5 * xr[:508], pn), ff),
+        "sync.despread_pn": (lambda: ops_sync.despread_pn(xr[:127 * 64], pn, 5), ff),
+        "sync.burst_detect": (lambda: ops_sync.burst_detect(x * (torch.arange(x.shape[0]) > 8000)
+                                                        .to(x.device) + 0.01 * x), ff),
+        "sync.burst_synchronize": (lambda: ops_sync.burst_synchronize(x, x[5000:5064]), ff),
+        # variances far from tol² (a window near it could flip between devices)
+        "sync2.freq_lock_detector": (lambda: sync2.freq_lock_detector(
+            torch.cat([0.003 * xr[:8192], 0.03 * xr[8192:]]), 0.01, 64), 0),
+        # rotated off the 4th power's ±π branch cut
+        "sync2.constellation_rotation_detect": (
+            lambda: sync2.constellation_rotation_detect(
+                syms * cis(torch.tensor(0.2)).to(syms.device)), ff),
+        "sync2.tuning_estimate": (lambda: sync2.tuning_estimate(tone + 0.1 * x, 48e3), ff),
+        "sync2.timing_error_detector": (lambda: sync2.timing_error_detector(rrc, 8), ff),
+        "sync2.timing_error_detector early_late": (
+            lambda: sync2.timing_error_detector(rrc, 8, "early_late"), ff),
+        "sync2.hybrid_timing_phase_detector": (
+            lambda: sync2.hybrid_timing_phase_detector(rrc, 8), ff),
+        "sync2.feedforward_timing_estimate": (
+            lambda: sync2.feedforward_timing_estimate(rrc, 8), ff),
+        "sync2.blind_timing_recover": (lambda: sync2.blind_timing_recover(rrc, 8), ff),
+        "sync2.cross_correlator": (lambda: sync2.cross_correlator(x, x[100:164]), ff),
+        # a pattern rotated by -0.7 rad: the peak's phase is 0.7, not a rounding away from 0
+        "sync2.correlate_estimate": (lambda: sync2.correlate_estimate(
+            x, x[100:164] * cis(torch.tensor(-0.7)).to(x.device), 0.3), ff),
+        "sync2.periodic_autocorrelator": (lambda: sync2.periodic_autocorrelator(x, 32, 4), ff),
+        "sync2.golay_complementary_pair": (
+            lambda: sync2.golay_complementary_pair(32, x.device), 0),
+        "sync2.golay_correlate": (lambda: sync2.golay_correlate(x, 32), ff),
+        "sync2.preamble_gen": (lambda: sync2.preamble_gen("golay", 64, x.device), 0),
+        "sync2.feedforward_agc": (lambda: sync2.feedforward_agc(x, 1.0, 64), ff),
+        "sync2.irig_b_encode": (lambda: sync2.irig_b_encode(45296, device=x.device), 0),
+        "sync2.csac_allan_deviation": (lambda: sync2.csac_allan_deviation(xr, 10), ff),
+        "equalizers.mmse_block_equalize": (lambda: equalizers.mmse_block_equalize(
+            v["isi"], np.asarray([1.0, 0.4, -0.2]), 30.0), ff),
+        "equalizers.fde_equalize": (lambda: equalizers.fde_equalize(
+            x.reshape(-1, 64), torch.fft.fft(x[:64]), 25.0), ff),
+        "equalizers.nearest_point": (lambda: equalizers.nearest_point(x, syms[:4]), 0),
+        "equalizers.turbo_equalizer_tx": (lambda: equalizers.turbo_equalizer_tx(
+            v["bits"][:1024], device=x.device)[0], 0),
+        "equalizers.turbo_equalize": (lambda: equalizers.turbo_equalize(
+            x[:2048] * 0.3 + equalizers.turbo_equalizer_tx(v["bits"][:1024], device=x.device)[0],
+            np.asarray([0.407, 0.815, 0.407]), turbo.default_interleaver(2048, seed=11), 0.4),
+            SLICE_LOOP_TOL),
+        "agc.agc_block": (lambda: agc_ops.agc_block(x, 1.0), ff),
+        "agc.cordic_rotate": (lambda: agc_ops.cordic_rotate(xr, v["err"], 4 * xr), 0),
+        "agc.cordic_magnitude_phase": (lambda: agc_ops.cordic_magnitude_phase(xr, v["err"]), 0),
+        "agc.chirp_z_transform": (lambda: agc_ops.chirp_z_transform(
+            x[:64], 64, np.exp(-2j * np.pi / 64)), ff),
+        # a 123.4 Hz tone inside the zoomed band (tests/test_adsb_ephemeris.py:157)
+        "agc.zoom_fft": (lambda: agc_ops.zoom_fft(torch.exp(
+            2j * math.pi * 0.1234 * torch.arange(4096, device=x.device)).to(torch.complex64),
+            100.0, 150.0, 200, 1000.0), ff),
+        "agc.cyclostationary_detector": (lambda: agc_ops.cyclostationary_detector(
+            rrc[:4000], 100.0, 1000.0), ff),
+        "agc.wigner_ville": (lambda: agc_ops.wigner_ville(x[:256], 64), ff),
+    }
+
+
+def slice_loops(v: dict) -> dict:
+    """The recursions, as label: (call of `steps` steps on the inputs `v`,
+    the reference test's step count, tolerance)."""
+    x, xr, rrc, syms, err = v["x"], v["xr"], v["rrc"], v["syms"], v["err"]
+    isi = v["isi"]
+    chips = torch.repeat_interleave(torch.sign(xr[:32]), 4).to(torch.complex64)
+    dll_in = torch.cat([torch.zeros(6, dtype=torch.complex64, device=x.device), chips,
+                        torch.zeros(378, dtype=torch.complex64, device=x.device)])
+    lt = SLICE_LOOP_TOL
+    return {
+        "filters.iir_filter": (lambda n: filters.iir_filter([0.5, 0.5], [1.0, -0.2], xr[:n]),
+                               64, lt),
+        "filters.single_pole_iir": (lambda n: filters.single_pole_iir(0.25, xr[:n]), 16, lt),
+        "filters.dc_blocker": (lambda n: filters.dc_blocker(xr[:n] + 5.0), 4096, lt),
+        "resample.pfb_clock_sync": (lambda n: resample.pfb_clock_sync(rrc[:(n + 2) * 4 + 33], 4),
+                                    800, 0),
+        "sync.costas_loop": (lambda n: ops_sync.costas_loop(syms[:n], 0.02, 4), 4000, lt),
+        "sync.pll_track_tone": (lambda n: ops_sync.pll_track_tone(
+            torch.exp(0.05j * torch.arange(n, device=x.device)).to(torch.complex64)), 4000, lt),
+        "sync.dpll_advance": (lambda n: ops_sync.dpll_advance(err[:n], 0.1, 0.01), 100, lt),
+        "sync.fll_band_edge": (lambda n: ops_sync.fll_band_edge(rrc[:n], 4), 12032, lt),
+        "sync2.afc": (lambda n: sync2.afc(x[:n] + 3.0, 1e4, 0.05), 4000, lt),
+        # rotated by 0.3 rad as tests/test_sync2.py:37 rotates it: x⁴ then sits off
+        # angle's ±π branch cut, where a last-bit difference would flip the loop
+        "sync2.carrier_recovery_mpsk": (lambda n: sync2.carrier_recovery_mpsk(
+            syms[:n] * cis(torch.tensor(0.3)).to(x.device), 4, 0.05), 4000, lt),
+        "sync2.pll_carrier_tracking": (lambda n: sync2.pll_carrier_tracking(
+            x[:n] * 0.1 + 1.0, 0.05), 6000, lt),
+        "sync2.pll_biquad": (lambda n: sync2.pll_biquad(x[:n] * 0.1 + 1.0), 6000, lt),
+        "sync2.symbol_sync_mm": (lambda n: sync2.symbol_sync_mm(rrc[:(n + 2) * 4], 4, 0.05),
+                                 1998, lt),
+        "sync2.delay_lock_loop": (lambda n: sync2.delay_lock_loop(dll_in, chips, 4, 0.2),
+                                  64, lt),
+        "sync2.agc_attack_decay": (lambda n: sync2.agc_attack_decay(x[:n] * 3, 1.0, 0.2, 0.05),
+                                   1000, lt),
+        "sync2.burst_gating_controller": (lambda n: sync2.burst_gating_controller(
+            40 * xr[:n], -10.0, -30.0, 8), 100, 0),
+        "sync2.pid_controller": (lambda n: sync2.pid_controller(err[:n], 1.0, 0.1, 0.5), 100, lt),
+        "sync2.control_loop_2nd": (lambda n: sync2.control_loop_2nd(err[:n], 0.1), 200, lt),
+        "equalizers.lms_equalize": (lambda n: equalizers.lms_equalize(isi[:n], syms[:n], 9,
+                                                                      0.02), 4000, lt),
+        "equalizers.rls_equalize": (lambda n: equalizers.rls_equalize(isi[:n], syms[:n], 7),
+                                    800, SLICE_RLS_TOL),
+        "equalizers.cma_equalize": (lambda n: equalizers.cma_equalize(isi[:n], 11, 0.002),
+                                    4096, lt),
+        "equalizers.dfe_equalize": (lambda n: equalizers.dfe_equalize(isi[:n], 9, 4, 0.005,
+                                                                      syms[:4]), 4096, 0),
+        "equalizers.time_domain_equalizer": (lambda n: equalizers.time_domain_equalizer(
+            isi[:n], 15, "lms", 0.01, reference=syms[:n // 4], constellation=syms[:4]), 1500, lt),
+        "equalizers.mlse_equalize": (lambda n: equalizers.mlse_equalize(
+            isi[:n], np.asarray([1.0, 0.4, -0.2]), QPSK_POINTS), 4096, 0),
+        "agc.agc": (lambda n: agc_ops.agc(x[:n] * 0.05, 1.0, 0.05, 0.02), 3000, lt),
+    }
+
+
+def compare_outputs(label: str, got, want, tol: float) -> float:
+    """max|card - CPU| / max|CPU| over every float tensor in the outputs
+    (integer and bool tensors, numpy arrays and numbers equal); raises
+    beyond `tol` (0: equal)."""
+    if isinstance(want, torch.Tensor):
+        if got.device.type != CARD or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{label}: {got.shape} {got.dtype} on {got.device}, want "
+                                 f"{want.shape} {want.dtype}")
+        got = got.cpu()
+        if not (want.is_floating_point() or want.is_complex()) or tol == 0:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: card differs from the CPU")
+            return 0.0
+        if not want.numel():
+            return 0.0
+        scale = float(torch.max(torch.abs(want))) or 1.0
+        rel = float(torch.max(torch.abs(got - want))) / scale
+        if not rel <= tol:
+            raise AssertionError(f"{label}: card vs CPU max|Δ|/max {rel:.3g} > {tol}")
+        return rel
+    if isinstance(want, dict):
+        return max([compare_outputs(f"{label}.{k}", got[k], want[k], tol) for k in want] or [0.0])
+    if isinstance(want, (tuple, list)):
+        return max([compare_outputs(f"{label}[{i}]", g, w, tol)
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        raise AssertionError(f"{label}: {got} on the card, {want} on the CPU")
+    return 0.0
+
+
+def on_device(v: dict, dev: torch.device) -> dict:
+    return {k: t.to(dev) for k, t in v.items()}
+
+
+def check_slice_card_against_cpu(dev: torch.device) -> dict:
+    """Phase 36: every function of pulse, filters, measure, resample, sync,
+    sync2, equalizers and agc that this slice ported, on the card against
+    the port's CPU result on the same numpy-made inputs (2^14 samples; the
+    loops at their reference tests' sizes): integer results equal, floats
+    within the stated tolerance of the CPU's peak. Then each recursion's
+    device launches a step (the profiler's event count at two step counts,
+    the slope) and host seconds a step at the reference size."""
+    cpu_v = slice_inputs()
+    dev_v = on_device(cpu_v, dev)
+    card, cpu = slice_cases(dev_v), slice_cases(cpu_v)
+    worst, failures = {}, []
+    for label, (fn, tol) in card.items():
+        try:  # every call is checked; the phase fails at its end if any differs
+            worst[label] = compare_outputs(label, fn(), cpu[label][0](), tol)
+        except AssertionError as exc:
+            failures.append(str(exc))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    phase("36 slice card vs cpu", f"{len(worst)} feed-forward calls on {SLICE_SAMPLES} samples: "
+          f"decisions equal, floats within {SLICE_CARD_TOL} of the CPU's peak (cumulative sums "
+          f"{SLICE_CUMSUM_TOL}); largest " + ", ".join(f"{k} {v:.3g}" for k, v in top))
+    card_loops, cpu_loops = slice_loops(dev_v), slice_loops(cpu_v)
+    table = {}
+    for label, (fn, steps, tol) in card_loops.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        try:
+            rel = compare_outputs(label, got, cpu_loops[label][0](steps), tol)
+        except AssertionError as exc:
+            failures.append(str(exc))
+            continue
+        if label in FIXED_STEP_LOOPS:  # its step count is the function's own
+            per_step = breakdown(lambda: fn(steps))["device_events"] / steps
+        else:
+            lo, hi = (breakdown(lambda: fn(n))["device_events"] for n in LOOP_PROFILE_STEPS)
+            per_step = (hi - lo) / (LOOP_PROFILE_STEPS[1] - LOOP_PROFILE_STEPS[0])
+        table[label] = {"steps": steps, "max_rel_err": rel, "launches_per_step": per_step,
+                        "host_s_per_step": secs / steps}
+    if failures:
+        raise AssertionError("; ".join(failures))
+    phase("36 slice loops", f"{len(table)} recursions at their reference tests' step counts: "
+          f"decisions equal, floats within {SLICE_LOOP_TOL} of the CPU's peak (RLS "
+          f"{SLICE_RLS_TOL}); launches a step (profiler, steps {LOOP_PROFILE_STEPS}) and host "
+          f"µs a step: " + ", ".join(
+              f"{k} {r['launches_per_step']:.2f}/{1e6 * r['host_s_per_step']:.1f}"
+              for k, r in table.items()))
+    return {"feed_forward": worst, "loops": table}
+
+
+def gate_decisions(gate: dict) -> dict:
+    """The decisions of a composed_receiver_gate result, by case and key."""
+    c = gate["cases"]
+    return {"link": {k: c["qpsk_link"][k] for k in ("offset", "rotation", "bits", "decoding")},
+            "isi": c["isi_mlse"]["decisions"], "map": c["map_soft"]["decisions"],
+            "mlse": c["mlse_vs_dfe"]["decisions"], "dfe": c["mlse_vs_dfe"]["dfe_decisions"]}
+
+
+def drive_receiver_gate(dev: torch.device) -> dict:
+    """Phase 37: `composed_receiver_gate()` on the card at the reference's
+    sizes and at the 1,500-byte packet, each with the counts set to 0 just
+    before it and read just after: every bar met (the reference's four at
+    its sizes; the packet decoded at full width), fir_decimate launched
+    twice (shaping and matched filter) and each Viterbi kernel once (the
+    hypothesis decode), no other hand-written kernel; every decision equal
+    to a CPU run of the gate; the packet's seconds end to end and the
+    shares of the step loops; one more reference-size gate under the
+    profiler (warm: the gate has just run)."""
+    out = {}
+    want = {"dechirp_power": 0, "fir_decimate": RECEIVER_FIR_LAUNCHES, "nco_mix": 0,
+            "viterbi_forward": 1, "viterbi_traceback": 1}
+    for label, n_bits in (("reference", RECEIVER_INFO_BITS), ("packet", PACKET_INFO_BITS)):
+        zero_launch_counts()
+        gate = composed_receiver_gate(dev, n_bits)
+        counts = kernel_counts()
+        if not gate["ok"] or counts != want:
+            raise AssertionError(f"receiver gate {label}: ok {gate['ok']}, launches {counts}")
+        cpu = composed_receiver_gate("cpu", n_bits)
+        card_dec, cpu_dec = gate_decisions(gate), gate_decisions(cpu)
+        for case, value in card_dec.items():
+            pairs = value.items() if isinstance(value, dict) else [("", value)]
+            for key, got in pairs:
+                ref = cpu_dec[case][key] if key else cpu_dec[case]
+                if not np.array_equal(np.asarray(got), np.asarray(ref)):
+                    raise AssertionError(f"receiver gate {label}: {case} {key} differs between "
+                                         f"card and CPU")
+        c, s = gate["cases"], gate["seconds"]
+        link = c["qpsk_link"]
+        phase("37 receiver gate", f"{label}: {n_bits} info bits on {dev}: {link['hypotheses']} "
+              f"hypotheses decoded as lanes of one viterbi_decode (bm ({link['viterbi_steps']}, "
+              f"4, {link['hypotheses']})), offset {link['offset']} rotation {link['rotation']} "
+              f"decodes the payload; sounding tap error {c['isi_mlse']['tap_err']:.4f}, ghost "
+              f"{c['isi_mlse']['ghost']:.4f}, MLSE SER {c['isi_mlse']['ser_mlse']} (slicer "
+              f"{c['isi_mlse']['ser_naive']:.4f}); MAP soft {c['map_soft']['errors_soft']} <= "
+              f"hard {c['map_soft']['errors_hard']}; null MLSE SER {c['mlse_vs_dfe']['ser_mlse']} "
+              f"vs DFE {c['mlse_vs_dfe']['ser_dfe']:.4f}; every decision equal to the CPU's; "
+              f"launches {json.dumps(counts)}; {s['total']:.3f} s end to end, pfb_clock_sync "
+              f"{s['pfb_clock_sync']:.3f} s ({100 * s['share']['pfb_clock_sync']:.1f}%), MLSE "
+              f"{s['mlse']:.3f} s ({100 * s['share']['mlse']:.1f}%), DFE {s['dfe']:.3f} s "
+              f"({100 * s['share']['dfe']:.1f}%); CPU run {cpu['seconds']['total']:.3f} s")
+        out[label] = {"launches": counts, "seconds": s, "cpu_seconds": cpu["seconds"]["total"]}
+    prof = breakdown(lambda: composed_receiver_gate(dev, RECEIVER_INFO_BITS), warm=False)
+    phase("37 receiver profile", f"one reference-size gate under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    out["profile"] = prof
+    return out
+
+
+def time_receiver_kernels(dev: torch.device) -> dict:
+    """Phase 38: the three kernels of the receiver gate at its own shapes,
+    against their plain versions and timed: fir_decimate at the packet's
+    shaping/matched-filter input (1, 48,256) complex64, K = 33, f = 1 (queued,
+    in turns with the plain version; cuDNN conv1d with TF32 off as the
+    yardstick), both Viterbi kernels at the hypothesis decode's bm (12,006,
+    4, 88) (bit for bit; the plain versions timed once, the kernels
+    queued). Returns per-kernel entries for the kernel line."""
+    gen = torch.Generator(device=dev).manual_seed(38)
+    n = (2 * (PACKET_INFO_BITS + 6) + 127) // 128 * 128 // 2 + 32  # symbols with the tail
+    x = randn_iq((1, n * RECEIVER_SPS), gen)
+    taps = torch.from_numpy(pulse.root_raised_cosine_taps(RECEIVER_SPS, 8, 0.35)).to(dev)
+    k = taps.shape[0]
+    got = fir.fir_decimate_cuda(x, taps.flip(0), 1, zero_state=True)
+    want = fir.fir_decimate(x, taps.flip(0), 1, zero_state=True)
+    abs_err, rel = rel_err(got, want)
+    if not rel < FIR_REL_TOL:
+        raise AssertionError(f"fir_decimate at the receiver's shape: {rel:.3g}")
+    # one row of 48,256 samples: a few microseconds of device work, so each
+    # time is taken queued behind a sleeping stream (not the host's launch rate),
+    # in turns: plain, kernel, kernel, plain
+    plain_fn = lambda: fir.fir_decimate(x, taps.flip(0), 1, zero_state=True)
+    kern_fn = lambda: fir.fir_decimate_cuda(x, taps.flip(0), 1, zero_state=True)
+    plain = [queued_ms(plain_fn)]
+    kern = [queued_ms(kern_fn), queued_ms(kern_fn)]
+    plain.append(queued_ms(plain_fn))
+    planes = F.pad(torch.view_as_real(x).permute(0, 2, 1), (k - 1, 0)).contiguous()
+    weight = taps.flip(0).view(1, 1, -1).repeat(2, 1, 1)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_out = F.conv1d(planes, weight, groups=2)
+        library = queued_ms(lambda: F.conv1d(planes, weight, groups=2))
+    _, lib_rel = rel_err(torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()), got)
+    if not lib_rel < FIR_REL_TOL:
+        raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
+    b_ms, b_by = fir_bound(1, x.shape[1] + k - 1, k, 1)
+    table = {"fir_decimate": {
+        "ms_receiver": sum(kern) / 2, "plain_ms_receiver": sum(plain) / 2,
+        "bound_ms_receiver": b_ms, "bound_by_receiver": b_by, "library_ms_receiver": library,
+        "max_abs_err_receiver": abs_err, "shape_receiver": [1, int(x.shape[1]), k, 1]}}
+    phase("38 receiver fir", f"fir_decimate complex (1, {x.shape[1]}) K={k} f=1 from zero state "
+          f"(the gate's shaping and matched filter), queued: kernel {kern[0]:.5f}/{kern[1]:.5f} "
+          f"ms, plain {plain[0]:.5f}/{plain[1]:.5f} ms, conv1d (cuDNN, FP32, max|Δ|/max|y| "
+          f"{lib_rel:.3g}) {library:.5f} ms; bound {b_ms:.5f} ms by {b_by}; max|Δ|/max|ref| "
+          f"{rel:.3g}")
+    del x, got, want, planes, lib_out
+    bm = noisy_branch_metrics(RECEIVER_HYPOTHESES, 2 * (PACKET_INFO_BITS + 6) // 2, 7, seed=38)
+    check = check_viterbi(bm, 7)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, 7, VITERBI_CODES[7])
+    for name, kern_fn, plain_ms, err, (b_ms, b_by), shape in (
+            ("viterbi_forward", lambda: viterbi.viterbi_forward_cuda(bm, 7, VITERBI_CODES[7]),
+             check["plain_forward_ms"], check["forward_abs_err"], forward_bound(bm, dec, 7),
+             bm.shape),
+            ("viterbi_traceback", lambda: viterbi.viterbi_traceback_cuda(dec, 7, VITERBI_CODES[7]),
+             check["plain_traceback_ms"], check["traceback_abs_err"], traceback_bounds(dec)[0],
+             dec.shape)):
+        ms = [queued_ms(kern_fn) for _ in range(2)]
+        table[name] = {"ms_receiver": sum(ms) / 2, "plain_ms_receiver": plain_ms,
+                       "bound_ms_receiver": b_ms, "bound_by_receiver": b_by,
+                       "max_abs_err_receiver": err, "shape_receiver": list(shape)}
+        phase("38 receiver viterbi", f"{name} at {tuple(shape)} (the gate's hypothesis decode): "
+              f"equal to the plain version bit for bit; kernel {ms[0]:.4f}/{ms[1]:.4f} ms queued, "
+              f"plain {plain_ms:.3f} ms once; bound {b_ms:.5f} ms by {b_by}; no library call")
+    return table
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2297,6 +2732,14 @@ def main() -> None:
     coded_run = drive_coded_gate(dev)
     drive_dvb_bench(dev)
 
+    # Synchronisation, equalisation and AGC: every function of the slice card
+    # against CPU, then the composed receiver gate with the counts set to 0
+    # just before each run and read just after (the FIR kernel twice, each
+    # Viterbi kernel once), then the three kernels at the gate's shapes.
+    check_slice_card_against_cpu(dev)
+    receiver_run = drive_receiver_gate(dev)
+    receiver_timing = time_receiver_kernels(dev)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -2343,7 +2786,10 @@ def main() -> None:
             "launches_noisy_gate": gate_run["launches"][name],
             "launches_coded_gate": coded_run["launches"][name],
             **coded_run["timing"][name],
+            "launches_receiver_gate": receiver_run["packet"]["launches"][name],
+            **receiver_timing[name],
             "library_ms": None,
+            "library_ms_receiver": None,
         })
     kernels.append({
         "name": "fir_decimate",
@@ -2352,6 +2798,8 @@ def main() -> None:
         "replaces": "r4w_tpu/kernels/pallas_kernels.py:185",
         "launches": fir_launches,
         **fir_timing,
+        "launches_receiver_gate": receiver_run["packet"]["launches"]["fir_decimate"],
+        **receiver_timing["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",

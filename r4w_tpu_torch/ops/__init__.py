@@ -1,12 +1,39 @@
 """DSP ops ported so far: the LoRa coding chain (`coding`), soft demapping
-(`modem`), the spreading-code generators (`spreading`), the FIR family
-and designs (`filters`), polyphase resampling (`resample`), the DDC and
-VCO (`stream_math`), the DUC (`filters2`), the BER half of `measure`,
-OFDM channel estimation and equalisation (`ofdm`), and the hardware
-impairments (`impairments`). Like the reference's ``r4w_tpu.ops``, the
-package exports its modules; `impairments` is imported here, as the
-reference imports it."""
+(`modem`), the spreading-code generators (`spreading`), the filters and
+designs (`filters`), pulse shaping (`pulse`), resampling, channelizers
+and PFB timing recovery (`resample`), the DDC and VCO (`stream_math`),
+the DUC (`filters2`), measurement (`measure`), OFDM channel estimation
+and equalisation (`ofdm`), the hardware impairments (`impairments`),
+synchronisation (`sync`, `sync2`), the equalizers (`equalizers`) and AGC
+with the CORDIC, chirp-Z and time-frequency blocks (`agc`). Like the
+reference's ``r4w_tpu.ops``, the package imports and exports the modules
+of its list that the port has (the reference's list leaves out `sync2`,
+`stream_math`, `filters2` and `ofdm`)."""
 
-from r4w_tpu_torch.ops import impairments
+from r4w_tpu_torch.ops import (
+    agc,
+    coding,
+    equalizers,
+    filters,
+    impairments,
+    measure,
+    modem,
+    pulse,
+    resample,
+    spreading,
+    sync,
+)
 
-__all__ = ["impairments"]
+__all__ = [
+    "agc",
+    "coding",
+    "equalizers",
+    "filters",
+    "impairments",
+    "measure",
+    "modem",
+    "pulse",
+    "resample",
+    "spreading",
+    "sync",
+]

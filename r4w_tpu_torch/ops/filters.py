@@ -19,8 +19,15 @@ convolution, and so no cuDNN TF32, is on the path. The oscillator of
 `freq_xlating_fir` is `kernels.nco.nco_mix_dispatch`.
 
 The design functions are numpy copies of the reference's and return the
-same float32 (or float64) arrays bit for bit. IIR, single-pole, DC
-blocker, CIC and median filters are not ported yet.
+same float32 (or float64) arrays bit for bit.
+
+The recursive filters (`iir_filter`, `single_pole_iir`, `dc_blocker`) are
+step loops over the samples, as the reference's ``lax.scan`` is: each
+step's input products are computed for the whole block first (the same
+float32 products the reference's step makes), so a step is the few
+launches of the recursion itself, and the carried state stays a tensor on
+the samples' device. The CIC integrators are cumulative sums with carried
+accumulators (`_cumsum`); the median filter sorts edge-padded windows.
 """
 
 from __future__ import annotations
@@ -126,6 +133,131 @@ def moving_average(x, length: int, state=None):
 def moving_rms(x, length: int):
     p, _ = moving_average(torch.abs(_signal(x)) ** 2, length)
     return torch.sqrt(p)
+
+
+def iir_filter(b, a, x, zi=None):
+    """Direct-form-II-transposed IIR (filters/iir.rs).
+
+    b, a: transfer function coefficients (a[0] normalized to 1).
+    zi: (..., max(len(a),len(b))-1) initial state. Returns (y, zf).
+    """
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    b = b / a[0]
+    a = a / a[0]
+    n = max(len(a), len(b))
+    b = np.pad(b, (0, n - len(b)))
+    a = np.pad(a, (0, n - len(a)))
+    x = _signal(x)
+    bt = torch.as_tensor(b, dtype=REAL_DTYPE, device=x.device)
+    at = torch.as_tensor(a, dtype=REAL_DTYPE, device=x.device)
+    z = (x.new_zeros(x.shape[:-1] + (n - 1,)) if zi is None
+         else to_tensor(zi, x.dtype, device=x.device))
+    # the step's input products b[k]·x[n], for every n at once
+    b0x = bt[0] * x
+    bx = bt[1:] * x[..., None]  # (..., N, n-1)
+    zero = z.new_zeros(z.shape[:-1] + (1,))
+    ys = []
+    for t in range(x.shape[-1]):
+        yn = b0x[..., t] + z[..., 0]
+        z = (bx[..., t, :] - at[1:] * yn[..., None]) + torch.cat([z[..., 1:], zero], dim=-1)
+        ys.append(yn)
+    return _stack_steps(ys, x), z
+
+
+def _stack_steps(ys: list, like: torch.Tensor) -> torch.Tensor:
+    """The per-step outputs of a loop over `like`'s last axis, on that axis."""
+    if not ys:
+        return like.new_zeros(like.shape)
+    return torch.stack(ys, dim=-1)
+
+
+def _median(v: torch.Tensor) -> torch.Tensor:
+    """Median of all elements; the mean of the two middle ones at an even
+    count, as the reference's median (`torch.median` takes the lower)."""
+    s = torch.sort(v.reshape(-1)).values
+    return (s[(s.numel() - 1) // 2] + s[s.numel() // 2]) * 0.5
+
+
+def single_pole_iir(alpha: float, x, state=None):
+    """y[n] = α·x[n] + (1-α)·y[n-1] (single_pole_iir.rs)."""
+    x = _signal(x)
+    y = x.new_zeros(x.shape[:-1]) if state is None else to_tensor(state, x.dtype, x.device)
+    ax = alpha * x
+    ys = []
+    for t in range(x.shape[-1]):
+        y = ax[..., t] + (1.0 - alpha) * y
+        ys.append(y)
+    return _stack_steps(ys, x), y
+
+
+def dc_blocker(x, alpha: float = 0.995, state=None):
+    """y[n] = x[n] - x[n-1] + α·y[n-1] (dc_blocker.rs). Returns (y, (x_last, y_last))."""
+    x = _signal(x)
+    if state is None:
+        xprev = x.new_zeros(x.shape[:-1])
+        yprev = x.new_zeros(x.shape[:-1])
+    else:
+        xprev = to_tensor(state[0], x.dtype, x.device)
+        yprev = to_tensor(state[1], x.dtype, x.device)
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape), (xprev, yprev)
+    diff = x - torch.cat([xprev[..., None], x[..., :-1]], dim=-1)
+    y, ys = yprev, []
+    for t in range(x.shape[-1]):
+        y = diff[..., t] + alpha * y
+        ys.append(y)
+    return torch.stack(ys, dim=-1), (x[..., -1], y)
+
+
+def _cumsum(v: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis in v's dtype. Floats accumulate in
+    float64 (complex128) and round back: the CPU's own accumulation, made
+    the card's too, whose float32 scan would round every partial sum."""
+    if v.is_complex() or v.is_floating_point():
+        wide = torch.complex128 if v.is_complex() else torch.float64
+        return torch.cumsum(v.to(wide), dim=-1).to(v.dtype)
+    return torch.cumsum(v, dim=-1, dtype=v.dtype)
+
+
+def cic_decimator(x, rate: int, stages: int = 3, state=None):
+    """CIC decimating filter (cic_filter.rs): N integrators @ input rate,
+    decimate by R, N combs @ output rate (differential delay 1).
+
+    Gain = R^N. Integrators run as cumsum chains per block with carried
+    accumulators; combs as diff with carried last samples.
+    """
+    x = to_tensor(x)
+    if state is None:
+        integ = x.new_zeros((stages,) + x.shape[:-1])
+        comb = x.new_zeros((stages,) + x.shape[:-1])
+    else:
+        integ, comb = (to_tensor(s, x.dtype, x.device) for s in state)
+    v = x
+    new_integ = []
+    for s in range(stages):
+        v = _cumsum(v) + integ[s][..., None]
+        new_integ.append(v[..., -1])
+    w = v[..., rate - 1 :: rate]
+    new_comb = []
+    for s in range(stages):
+        prev = torch.cat([comb[s][..., None], w[..., :-1]], dim=-1)
+        new_comb.append(w[..., -1])
+        w = w - prev
+    return w, (torch.stack(new_integ), torch.stack(new_comb))
+
+
+def median_filter(x, length: int):
+    """Sliding median (median_filter.rs), edge-padded. An even length takes
+    the mean of the two middle values, as the reference's median does (not
+    the lower one, as `torch.median` would)."""
+    x = to_tensor(x)
+    n, half = x.shape[-1], length // 2
+    idx = (torch.arange(n, device=x.device)[:, None] - half
+           + torch.arange(length, device=x.device)[None, :]).clamp(0, n - 1)
+    windows = torch.sort(x[..., idx], dim=-1).values
+    lo, hi = windows[..., (length - 1) // 2], windows[..., length // 2]
+    return (lo + hi) * 0.5
 
 
 def hilbert_fir_taps(num_taps: int = 65, window: str = "hamming") -> np.ndarray:

@@ -20,7 +20,9 @@ the E1B tracking cell (``gnss.galileo_pvt.closed_pass``, the Galileo
 gate's closed Costas pass over the first 1.008 s of its six-satellite
 capture at 5.115 MS/s: six channels × about 250 four-ms blocks of 20,460
 samples, seeded by one run of ``e1b_receiver`` on the same capture before
-the cell). It needs a CUDA card; it has no CPU path.
+the cell) and the composed receiver gate (`entry.composed_receiver_gate`
+at the reference's 1,024 bits: the step loops of PFB timing recovery,
+MLSE and the DFE). It needs a CUDA card; it has no CPU path.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, SWEEP_PAYLOAD_BYTES,
-                                 SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES, ddc_signal,
-                                 sweep_lanes)
+                                 SWEEP_SNRS_DB, VITERBI_INFO_BITS, VITERBI_LANES,
+                                 composed_receiver_gate, ddc_signal, sweep_lanes)
 from r4w_tpu_torch.fec.convolutional import conv_encode, viterbi_decode_mxu
 from r4w_tpu_torch.gnss import galileo_pvt as gal
 from r4w_tpu_torch.gnss import gps_pvt_fix as gps
@@ -48,21 +50,28 @@ from r4w_tpu_torch.waveforms import lora
 
 TOP_EVENTS = 8
 NAME_CHARS = 96  # device event names are cut to this length
+MEMORY_EVENTS = ("[memory]", "[OutOfMemory]")  # allocator records, not device work
 GPS_CELL_SECONDS = 1.001  # 1000 tracking blocks after the latest channel's window start
 GAL_CELL_SECONDS = 1.008  # 250 E1B blocks after the latest channel's code epoch
 
 
-def breakdown(fn) -> dict:
-    """Device time of one call of `fn` (after one warm-up call)."""
-    fn()
+def breakdown(fn, warm: bool = True) -> dict:
+    """Device time of one call of `fn`, after one warm-up call unless the
+    caller has just made one (`warm=False`)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the raw device events, not prof.events(): building those event trees
+    # takes minutes at a step loop's hundreds of thousands of launches
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()
+              and e.name() not in MEMORY_EVENTS]
     if not events:
         raise RuntimeError("the profiler recorded no device events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events)
     busy_us, end_us = 0.0, spans[0][0]
     for start, stop in spans:
         busy_us += max(0.0, stop - max(start, end_us))
@@ -70,7 +79,7 @@ def breakdown(fn) -> dict:
     span_us = end_us - spans[0][0]
     by_name = defaultdict(float)
     for e in events:
-        by_name[e.name[:NAME_CHARS]] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name()[:NAME_CHARS]] += e.duration_ns() / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_EVENTS]
     return {"busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
             "idle_share": 1.0 - busy_us / span_us if span_us else 0.0,
@@ -97,6 +106,7 @@ def cells(device: torch.device) -> dict:
     runs["gps_tracking"] = functools.partial(gps.l1ca_receiver, rx,
                                              [s.prn for s in cfg.satellites])
     runs["e1b_tracking"] = e1b_tracking_cell(device)
+    runs["receiver_gate"] = functools.partial(composed_receiver_gate, device)
     return runs
 
 

@@ -27,7 +27,8 @@ from r4w_tpu_torch.core import types
 from r4w_tpu_torch import arq, ber
 from r4w_tpu_torch.channel import (flat_doppler_shift, gaussian_doppler_fading, jakes_fading,
                                    theoretical_ber_awgn)
-from r4w_tpu_torch.entry import (ber_gate, channel_bench, coded_link_gate, ddc_bench,
+from r4w_tpu_torch.entry import (ber_gate, channel_bench, coded_link_gate, composed_receiver_gate,
+                                 ddc_bench,
                                  device_sweep, dual_pvt, dvb_s2x_bench, dvb_s2x_frames, entry,
                                  fading_case, fading_gate, fleet_noisy_gate, galileo_pvt,
                                  glonass_track, gps_pvt_fix, lora_packet_roundtrip, lora_sweep,
@@ -38,6 +39,9 @@ from r4w_tpu_torch.fec.tcm import tcm_coding_gain_demo
 from r4w_tpu_torch.gnss import GnssScenario, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, init_state, inav
 from r4w_tpu_torch.gnss.gps_pvt_fix import main_code_phase, main_decoded
+from r4w_tpu_torch.ops.equalizers import turbo_equalizer_tx
+from r4w_tpu_torch.ops.measure import channel_capacity_awgn
+from r4w_tpu_torch.ops.sync2 import golay_complementary_pair, irig_b_encode, preamble_gen
 from r4w_tpu_torch.parallel import batch_demodulate, batch_modulate, ber_sweep, monte_carlo_ber
 from r4w_tpu_torch.waveforms import lora
 from r4w_tpu_torch.waveforms.lora_waveform import LoRaWaveform
@@ -159,7 +163,8 @@ def test_entry_points_default_to_the_card():
                gps_pvt_fix, pcps_bench, galileo_pvt, dual_pvt, glonass_track, ber_gate,
                lora_packet_roundtrip, packet_capture, pcps_gcorr_bench, device_sweep, sweep_round,
                fleet_noisy_gate, sincgars_data_roundtrip, channel_bench, fading_case,
-               fading_gate, coded_link_gate, dvb_s2x_frames, dvb_s2x_bench):
+               fading_gate, coded_link_gate, dvb_s2x_frames, dvb_s2x_bench,
+               composed_receiver_gate):
         assert torch.device(inspect.signature(fn).parameters["device"].default) == cuda, fn
     for fn in (GnssScenario, init_state, main_decoded, main_code_phase, gal.main, dual.main,
                glo.main, gal.decode_sv_channel, inav.decode_stream, inav.decode_part,
@@ -167,7 +172,8 @@ def test_entry_points_default_to_the_card():
                ber.ber_acceptance_report, arq.HarqSender, arq.HarqReceiver,
                arq.harq_roundtrip_demo, jakes_fading, gaussian_doppler_fading,
                flat_doppler_shift, theoretical_ber_awgn,
-               tcm_coding_gain_demo):  # None: DEFAULT_DEVICE
+               tcm_coding_gain_demo, channel_capacity_awgn, turbo_equalizer_tx,
+               golay_complementary_pair, preamble_gen, irig_b_encode):  # None: DEFAULT_DEVICE
         assert inspect.signature(fn).parameters["device"].default is None, fn
     assert LoRaWaveform().device == cuda and MilStd188110().device == cuda
     assert create_waveform("LoRa").device == cuda
@@ -208,6 +214,8 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.fec.interleave, r4w_tpu_torch.fec.ldpc\n"
             "import r4w_tpu_torch.fec.dvb_s2x, r4w_tpu_torch.fec.turbo, r4w_tpu_torch.fec.polar\n"
             "import r4w_tpu_torch.fec.tcm, r4w_tpu_torch.fec.fountain\n"
+            "import r4w_tpu_torch.ops.pulse, r4w_tpu_torch.ops.sync, r4w_tpu_torch.ops.sync2\n"
+            "import r4w_tpu_torch.ops.equalizers, r4w_tpu_torch.ops.agc, r4w_tpu_torch.core.hostio\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"

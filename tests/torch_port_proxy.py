@@ -1,0 +1,84 @@
+"""Run the JAX package's own test functions against the port's modules.
+
+`run_reference_test(monkeypatch, module, name, **swaps)` swaps each of the
+reference test module's module-level names (``sync2``, ``filters``, ...)
+for a `PortModule` over the port's module of that name, puts the port's
+default device on the CPU, and calls the test function (``"Class.method"``
+for a test in a class). A `PortModule` calls the port's function with
+JAX arrays and numpy arrays as CPU tensors of the dtype JAX would give
+them with 64-bit types off (float64 → float32, int64 → int32, complex128 →
+complex64), and returns tensors as numpy arrays, inside tuples, named
+tuples, lists and dicts too, so that the reference test's own assertions
+read the port's outputs unchanged.
+"""
+
+from __future__ import annotations
+
+import functools
+import importlib
+import inspect
+
+import jax
+import numpy as np
+import torch
+
+from r4w_tpu_torch.core import types
+
+_CANONICAL = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+              np.dtype(np.complex128): np.complex64}
+
+
+def to_port(value):
+    if isinstance(value, jax.Array):
+        value = np.asarray(value)
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.array(value, dtype=_CANONICAL.get(value.dtype, value.dtype)))
+    return value
+
+
+def to_numpy(value):
+    if isinstance(value, torch.Tensor):
+        return value.numpy()
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        return type(value)(*map(to_numpy, value))
+    if isinstance(value, (tuple, list)):
+        return type(value)(map(to_numpy, value))
+    if isinstance(value, dict):
+        return {k: to_numpy(v) for k, v in value.items()}
+    return value
+
+
+class PortModule:
+    """The port's module seen through numpy, as the reference's tests read it."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def __getattr__(self, name):
+        value = getattr(self._module, name)
+        if inspect.isclass(value) or not callable(value):
+            return value
+
+        @functools.wraps(value)
+        def call(*args, **kwargs):
+            return to_numpy(value(*map(to_port, args),
+                                  **{k: to_port(v) for k, v in kwargs.items()}))
+        return call
+
+
+def run_reference_test(monkeypatch, module: str, name: str, **swaps: str) -> None:
+    """Run test `name` of the reference test module `module` (a file of
+    tests/) with each name in `swaps` bound to a PortModule of the port's
+    module at the dotted path it maps to."""
+    ref = importlib.import_module(module)
+    monkeypatch.setattr(types, "DEFAULT_DEVICE", torch.device("cpu"))
+    for attr, path in swaps.items():
+        proxy = PortModule(importlib.import_module(path))
+        if "." in attr:  # a package attribute that a test imports inside its body
+            package, sub = attr.rsplit(".", 1)
+            monkeypatch.setattr(importlib.import_module(package), sub, proxy)
+        else:
+            monkeypatch.setattr(ref, attr, proxy)
+    owner, _, method = name.partition(".")
+    fn = getattr(getattr(ref, owner)(), method) if method else getattr(ref, owner)
+    fn()
