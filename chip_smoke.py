@@ -81,7 +81,25 @@ launched twice and each Viterbi kernel once a gate, the timing and phase
 hypotheses as the lanes of one decode), with one gate under the
 profiler; phase 38 holds the three kernels against their plain versions
 at the gate's shapes (FIR (1, 48,256) K = 33; Viterbi bm (12,006, 4, 88))
-and times them. Each
+and times them. Then the modem family: phase 39 runs
+``modem_family_gate()`` (every function of the rest of modem, mapping,
+events, scramblers, the RAKE receiver, exotic_modems and the emphasis
+filters on its JAX test's inputs, card against CPU; the FEC table's
+convolutional codec on a 1,500-byte packet, each Viterbi kernel launched
+once; an LTE 20 MHz uplink subframe through SC-FDMA) and times both
+Viterbi kernels at the packet's bm (12,006, 4, 1); phase 40 runs
+``fm_broadcast_gate()``, a broadcast FM stereo + RDS receiver, at 1 s and
+at one minute of a station (14.4 M IQ samples at 240 kS/s), each with the
+counts set to 0 just before it and read just after (every bar;
+fir_decimate 9 and first_order_iir 1 launches at both lengths), holds a
+2 s station's card results against a CPU run, and profiles one warm
+chain; phase 41 holds the recursion kernel bit for bit against its plain
+step loop (at the FM path's (1, 14.4 M) through ``step_loop``, the loop's
+arithmetic in numpy), times it at (1, 2^15), (1, 14.4 M) and (2, 14.4 M)
+beside its bytes bound and its serial floor (the bare chain, timed on the
+card by ``chain_probe``), and times the FIR at (1, 14.4 M) float32 for
+K = 301, 201 and 101 beside its plain version, cuDNN's conv1d and its
+bound. Each
 phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
@@ -92,6 +110,7 @@ It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -129,12 +148,19 @@ from r4w_tpu_torch.gnss import glonass_track as glo
 from r4w_tpu_torch.gnss import gps_pvt_fix as gps
 from r4w_tpu_torch.gnss.ephemeris import circular_ephemeris_for_position
 from r4w_tpu_torch.gnss import prn as gnss_prn
-from r4w_tpu_torch.kernels import _build, fir, nco, viterbi
+from r4w_tpu_torch.kernels import _build, fir, nco, recurrence, viterbi
 from r4w_tpu_torch.kernels.dechirp import dechirp_power, dechirp_power_cuda, launch_plan
 from r4w_tpu_torch.ops import agc as agc_ops
 from r4w_tpu_torch.ops import sync as ops_sync
 from r4w_tpu_torch.ops import (equalizers, filters, filters2, impairments, measure, pulse, resample,
                                spreading, stream_math, sync2)
+from r4w_tpu_torch.modem_gates import (FAMILY_DFT_TOL, FAMILY_PHASE_TOL, FAMILY_TOL,
+                                       FM_FIR_LAUNCHES, FM_RATE_HZ, FM_RECURSION_LAUNCHES,
+                                       FM_SECONDS, FM_SEPARATION_DB, LTE_CP,
+                                       LTE_FFT, LTE_SC, LTE_SYMBOLS, fm_broadcast_chain,
+                                       fm_broadcast_gate, modem_family_gate)
+from r4w_tpu_torch.modem_gates import PACKET_BYTES as FAMILY_PACKET_BYTES
+from r4w_tpu_torch.modem_gates import launch_counts as fm_counts
 from r4w_tpu_torch.profiling import breakdown
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
@@ -256,8 +282,13 @@ SLICE_LOOP_TOL = 1e-4      # the recursions, tests/test_torch_resample_sync.py's
 SLICE_RLS_TOL = 5e-5       # RLS, tests/test_torch_equalizers_agc.py's RLS_TOL
 LOOP_PROFILE_STEPS = (64, 192)  # a recursion's launches a step: the slope between these
 FIXED_STEP_LOOPS = {"sync2.delay_lock_loop"}  # 64 steps whatever the input
+RECURSION_KERNEL_LOOPS = {"filters.single_pole_iir", "filters.dc_blocker"}  # one launch a call
 RECEIVER_FIR_LAUNCHES = 2  # the gate's shaping filter and matched filter
 RECEIVER_HYPOTHESES = 88   # offsets 0-21 × 4 rotations, lanes of one Viterbi decode
+FM_CARD_SECONDS = 2.0      # phase 40's station for the card against the CPU
+FM_CARD_TOL = 1e-4         # max|card - CPU| / max|CPU| of L, R, mono audio and the multiplex
+FM_FIR_TAPS = (301, 201, 101)  # the FM path's analytic bandpass and RDS lowpass, stereo lowpass, mono
+CLOCK_READ_CALLS = 24      # queued recursion calls at the FM row while nvidia-smi reads the clock
 
 
 def phase(name: str, message: str) -> None:
@@ -330,6 +361,7 @@ def zero_launch_counts() -> None:
     viterbi.viterbi_traceback.launches = 0
     fir.fir_decimate.launches = 0
     nco.nco_mix.launches = 0
+    recurrence.first_order_recurrence.launches = 0
 
 
 def randn_iq(shape, gen: torch.Generator) -> torch.Tensor:
@@ -2318,7 +2350,9 @@ def check_slice_card_against_cpu(dev: torch.device) -> dict:
     loops at their reference tests' sizes): integer results equal, floats
     within the stated tolerance of the CPU's peak. Then each recursion's
     device launches a step (the profiler's event count at two step counts,
-    the slope) and host seconds a step at the reference size."""
+    the slope; the one-pole filters launch first_order_iir once a call at
+    either count, read from its counter) and host seconds a step at the
+    reference size."""
     cpu_v = slice_inputs()
     dev_v = on_device(cpu_v, dev)
     card, cpu = slice_cases(dev_v), slice_cases(cpu_v)
@@ -2349,6 +2383,15 @@ def check_slice_card_against_cpu(dev: torch.device) -> dict:
             continue
         if label in FIXED_STEP_LOOPS:  # its step count is the function's own
             per_step = breakdown(lambda: fn(steps))["device_events"] / steps
+        elif label in RECURSION_KERNEL_LOOPS:  # one launch of first_order_iir a call
+            counts = []
+            for n in LOOP_PROFILE_STEPS:
+                before = recurrence.first_order_recurrence.launches
+                fn(n)
+                counts.append(recurrence.first_order_recurrence.launches - before)
+            if counts != [1, 1]:
+                raise AssertionError(f"{label}: first_order_iir launches {counts}, want 1 a call")
+            per_step = 0.0
         else:
             lo, hi = (breakdown(lambda: fn(n))["device_events"] for n in LOOP_PROFILE_STEPS)
             per_step = (hi - lo) / (LOOP_PROFILE_STEPS[1] - LOOP_PROFILE_STEPS[0])
@@ -2488,6 +2531,276 @@ def time_receiver_kernels(dev: torch.device) -> dict:
               f"equal to the plain version bit for bit; kernel {ms[0]:.4f}/{ms[1]:.4f} ms queued, "
               f"plain {plain_ms:.3f} ms once; bound {b_ms:.5f} ms by {b_by}; no library call")
     return table
+
+
+def drive_family_gate(dev: torch.device) -> dict:
+    """Phase 39: `modem_family_gate()` on the card (every function of the
+    modem family on its JAX test's inputs, card against CPU: decisions
+    equal, floats within the stated tolerance), the 1,500-byte convolutional
+    packet (each Viterbi kernel launched once, the bits back) and the LTE
+    uplink subframe (symbols back, PAPR below plain OFDM's); then both
+    Viterbi kernels against their plain versions at the packet's bm
+    (12,006, 4, 1), timed queued. Returns the Viterbi kernels' entries."""
+    gate = modem_family_gate(dev)
+    worst, conv, lte = gate["worst"], gate["conv_packet"], gate["lte"]
+    if not gate["ok"] or conv["launches"] != {"viterbi_forward": 1, "viterbi_traceback": 1}:
+        bad = {k: worst[k] for k in gate["failed"]}
+        raise AssertionError(f"family gate: ok {gate['ok']}, differing {bad}, conv {conv}, "
+                             f"lte {lte}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    phase("39 family card vs cpu", f"{len(worst)} cases equal to the CPU's decisions, floats "
+          f"within {FAMILY_TOL} ({FAMILY_PHASE_TOL} for the WSJT tones, {FAMILY_DFT_TOL} for "
+          f"the PMU and harmonic DFTs); worst per case: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top))
+    phase("39 family conv packet", f"{conv['bits']} bits ({conv['coded']} coded) decoded back "
+          f"through the FEC table on the card; launches {json.dumps(conv['launches'])}")
+    phase("39 family lte", f"LTE 20 MHz uplink subframe ({LTE_SYMBOLS} × {LTE_SC} QPSK on "
+          f"{LTE_FFT}-point, cp {LTE_CP}; {lte['samples']} samples): max|Δ| "
+          f"{lte['max_abs_err']:.3g}; PAPR SC-FDMA {lte['papr_sc_fdma_db']:.4f} dB < OFDM "
+          f"{lte['papr_ofdm_db']:.4f} dB")
+    phase("39 family left out", "; ".join(f"{k}: {v}" for k, v in gate["left_out"].items()))
+    steps = 8 * FAMILY_PACKET_BYTES + 6
+    bm = noisy_branch_metrics(1, steps, 7, seed=39)
+    check = check_viterbi(bm, 7)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, 7, VITERBI_CODES[7])
+    table = {}
+    for name, fn, plain_ms, err, (b_ms, b_by), shape in (
+            ("viterbi_forward", lambda: viterbi.viterbi_forward_cuda(bm, 7, VITERBI_CODES[7]),
+             check["plain_forward_ms"], check["forward_abs_err"], forward_bound(bm, dec, 7),
+             bm.shape),
+            ("viterbi_traceback", lambda: viterbi.viterbi_traceback_cuda(dec, 7, VITERBI_CODES[7]),
+             check["plain_traceback_ms"], check["traceback_abs_err"], traceback_bounds(dec)[0],
+             dec.shape)):
+        ms = [queued_ms(fn) for _ in range(2)]
+        table[name] = {"ms_packet": sum(ms) / 2, "plain_ms_packet": plain_ms,
+                       "bound_ms_packet": b_ms, "bound_by_packet": b_by,
+                       "max_abs_err_packet": err, "shape_packet": list(shape),
+                       "launches_family_gate": conv["launches"][name]}
+        phase("39 packet viterbi", f"{name} at {tuple(shape)} (the packet's hard decode): equal "
+              f"to the plain version bit for bit; kernel {ms[0]:.4f}/{ms[1]:.4f} ms queued, "
+              f"plain {plain_ms:.3f} ms once; bound {b_ms:.6f} ms by {b_by}; no library call")
+    return table
+
+
+def fm_launch_check(label: str, counts: dict) -> None:
+    want = dict.fromkeys(counts, 0)
+    want.update(fir_decimate=FM_FIR_LAUNCHES, first_order_iir=FM_RECURSION_LAUNCHES)
+    if counts != want:
+        raise AssertionError(f"fm broadcast {label}: launches {counts}, want {want}")
+
+
+def drive_fm_broadcast(dev: torch.device) -> dict:
+    """Phase 40: `fm_broadcast_gate()` on the card at 1 s and at its full 60 s
+    (14.4 M IQ samples at 240 kS/s), each with the counts set to 0 just
+    before it and read just after: every bar met, fir_decimate launched 9
+    times and first_order_iir once at both lengths (no loop over samples),
+    no other hand-written kernel. Then the card against a CPU run of the
+    gate on a 2 s station (RDS bits equal, L, R and mono audio within
+    FM_CARD_TOL of the CPU's peak) and one warm chain on the card-resident
+    60 s IQ under the profiler (the gate without the numpy synthesis and
+    the host's spectra)."""
+    runs = {}
+    for label, seconds in (("1 s", 1.0), ("60 s", FM_SECONDS)):
+        zero_launch_counts()
+        gate = fm_broadcast_gate(dev, seconds)
+        counts = fm_counts()
+        fm_launch_check(label, counts)
+        b = gate["bars"]
+        if not gate["ok"]:
+            raise AssertionError(f"fm broadcast {label}: bars {b}")
+        phase("40 fm broadcast", f"{label} ({gate['samples']} IQ samples at {FM_RATE_HZ:.0f} S/s) "
+              f"on {dev}: pilot present {b['present']}; separation L {b['separation_left_db']:.2f}"
+              f" dB, R {b['separation_right_db']:.2f} dB (bar {FM_SEPARATION_DB}); RDS match "
+              f"{b['rds_match']:.6f} over {b['rds_bits']} bits; mono tones {b['mono_tones_hz']} Hz "
+              f"(±{b['tone_tol_hz']:.4g}); stage ms {json.dumps(gate['stage_ms'])}; launches "
+              f"{json.dumps(counts)}; {gate['seconds']:.4f} s end to end")
+        runs[label] = {"launches": counts, "stage_ms": gate["stage_ms"],
+                       "seconds": gate["seconds"], "bars": b}
+        iq = gate["iq"]
+        del gate
+    if runs["1 s"]["launches"] != runs["60 s"]["launches"]:
+        raise AssertionError(f"fm broadcast launches grow with the length: {runs}")
+    card = fm_broadcast_gate(dev, FM_CARD_SECONDS)["outputs"]
+    cpu = fm_broadcast_gate("cpu", FM_CARD_SECONDS)["outputs"]
+    if not torch.equal(card["rds_bits"].cpu(), cpu["rds_bits"]):
+        raise AssertionError("fm broadcast: the card's RDS bits differ from the CPU's")
+    diffs = {}
+    for key in ("left", "right", "audio", "mpx"):
+        _, diffs[key] = rel_err(card[key].cpu(), cpu[key])
+        if not diffs[key] < FM_CARD_TOL:
+            raise AssertionError(f"fm broadcast: {key} card vs CPU {diffs[key]:.3g}")
+    phase("40 fm card vs cpu", f"{FM_CARD_SECONDS} s station: {card['rds_bits'].numel()} RDS bits "
+          f"equal; max|Δ|/max|CPU| " + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+          + f" (bar {FM_CARD_TOL})")
+    prof = breakdown(lambda: fm_broadcast_chain(iq, FM_RATE_HZ))
+    phase("40 fm profile", f"one warm chain on the 60 s IQ under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    runs["card_vs_cpu"] = diffs
+    runs["profile"] = prof
+    return runs
+
+
+def step_loop(u: np.ndarray, b: float, y0: float = 0.0) -> np.ndarray:
+    """One float32 row of the recursion y[n] = u[n] + b·y[n-1] in numpy
+    float32 scalars: the plain step loop's arithmetic (the product rounded,
+    then the sum), at a speed that reaches the FM path's 14.4 M steps,
+    where the plain loop's 28.8 M launches do not."""
+    coef, y = np.float32(b), np.float32(y0)
+    out = np.empty_like(u)
+    for t in range(u.shape[0]):
+        y = u[t] + coef * y
+        out[t] = y
+    return out
+
+
+def chain_probe(steps: int, b: float) -> dict:
+    """The recursion's bare chain on the card (`first_order_iir_chain_probe`
+    in csrc/first_order_iir.cu: one thread, `steps` dependent float32
+    products and sums): its cycles and nanoseconds a step, the SM clock
+    (MHz) while it ran, and its last y. Timed on its second launch."""
+    fn = _build.load_library("first_order_iir").r4w_first_order_iir_chain_probe
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    y = torch.empty(1, device="cuda")
+    ticks = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        err = fn(steps, b, 0.5, -0.25, y.data_ptr(), ticks.data_ptr(), ticks.data_ptr() + 8,
+                 stream)
+        if err != 0:
+            raise RuntimeError(f"first_order_iir_chain_probe launch failed with cudaError {err}")
+    cycles, ns = (int(v) for v in ticks.cpu())
+    return {"cycles_per_step": cycles / steps, "ns_per_step": ns / steps,
+            "sm_mhz": 1e3 * cycles / ns, "y": float(y.cpu()[0])}
+
+
+def sm_clock_while(fn, calls: int = CLOCK_READ_CALLS) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while `calls` calls of `fn`,
+    queued back to back, keep the card busy."""
+    for _ in range(calls):
+        fn()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
+def time_recursion_and_fm_fir(dev: torch.device) -> dict:
+    """Phase 41: the recursion kernel against its plain version bit for bit at
+    (1, 2^15) and (64, 4096) float32 and (8, 4096) complex64 (with and
+    without a state) and at the FM path's (1, 14.4 M) with a state (against
+    `step_loop`, which equals the plain loop on the first 2^15 steps here
+    and in the CPU tests); timed queued at (1, 2^15) beside the plain step
+    loop and at (1, 14.4 M) and (2, 14.4 M), with its bytes bound and its
+    serial floor: the steps times the measured time a step of the bare
+    chain (`chain_probe`), whose cycles a step and SM clock it reports
+    beside the kernel's cycles a step at the clock nvidia-smi reads while
+    it runs. Then the FIR kernel at (1, 14.4 M) float32 for K = 301, 201
+    and 101 (the FM path's filters): kernel, plain, cuDNN conv1d with TF32
+    off, bound. Returns the kernel line's entries."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    b = 1.0 - 1.0 / 9.0
+    for shape, dtype in (((1, 1 << 15), torch.float32), ((64, 4096), torch.float32),
+                         ((8, 4096), torch.complex64)):
+        u = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        state = torch.randn(shape[:1], generator=gen, device=dev, dtype=dtype)
+        for st in (None, state):
+            got = recurrence.first_order_recurrence_cuda(u, b, st)
+            want = recurrence.first_order_recurrence(u, b, st)
+            if not torch.equal(got, want):
+                raise AssertionError(f"first_order_iir at {shape} {dtype}: differs from the plain "
+                                     f"loop by {float(torch.max(torch.abs(got - want))):.3g}")
+    n = int(FM_SECONDS * FM_RATE_HZ)
+    u = torch.randn((1, n), generator=gen, device=dev)
+    state = torch.randn((1,), generator=gen, device=dev)
+    got = recurrence.first_order_recurrence_cuda(u, b, state)[0].cpu().numpy()
+    u_host, y0 = u[0].cpu().numpy(), float(state.cpu()[0])
+    head = recurrence.first_order_recurrence(torch.from_numpy(u_host[None, :1 << 15]), b,
+                                             state.cpu())[0].numpy()
+    if not np.array_equal(step_loop(u_host[:1 << 15], b, y0), head):
+        raise AssertionError("step_loop differs from the plain step loop")
+    t0 = time.perf_counter()
+    want = step_loop(u_host, b, y0)
+    loop_s = time.perf_counter() - t0
+    max_abs_err = float(np.max(np.abs(got.astype(np.float64) - want)))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"first_order_iir at (1, {n}): differs from the step loop by "
+                             f"{max_abs_err:.3g} at {int(np.count_nonzero(got != want))} samples")
+    phase("41 recursion", f"first_order_iir equals the plain step loop bit for bit at (1, 32768) "
+          f"and (64, 4096) float32 and (8, 4096) complex64, with and without a state, and "
+          f"at the FM path's (1, {n}) with a state (max|Δ| {max_abs_err}) against the step "
+          f"loop in numpy float32 ({loop_s:.1f} s on the host), which equals the plain loop on "
+          f"its first 32768 steps")
+    del u, state, got, u_host, want, head
+    probe = chain_probe(n, b)
+    small = chain_probe(1 << 12, b)
+    if not small["y"] == float(step_loop(np.tile(np.float32([0.5, -0.25, -0.5, 0.25]), 1 << 10),
+                                         b)[-1]):
+        raise AssertionError(f"the chain probe computes another chain: {small['y']}")
+    phase("41 recursion floor", f"the bare chain ({n} dependent float32 products and sums in "
+          f"one thread): {probe['cycles_per_step']:.4f} cycles a step, "
+          f"{probe['ns_per_step']:.5f} ns a step, the SM at {probe['sm_mhz']:.1f} MHz")
+    u = torch.randn((1, 1 << 15), generator=gen, device=dev)
+    plain = [cuda_ms(lambda: recurrence.first_order_recurrence(u, b), 1)]
+    kern = [queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, b)) for _ in range(2)]
+    plain.append(cuda_ms(lambda: recurrence.first_order_recurrence(u, b), 1))
+    steps = 1 << 15
+    entry = {"ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "shape": [1, steps],
+             "bound_ms": 1e3 * 8 * steps / HBM_BYTES_PER_S, "bound_by": "bytes",
+             "serial_floor_ms": steps * probe["ns_per_step"] * 1e-6,
+             "chain_cycles_per_step": probe["cycles_per_step"], "chain_sm_mhz": probe["sm_mhz"],
+             "max_abs_err": max_abs_err, "max_abs_err_shape": [1, n], "library_ms": None}
+    phase("41 recursion timing", f"(1, {steps}) float32: kernel {kern[0]:.4f}/{kern[1]:.4f} ms "
+          f"queued, plain step loop {plain[0]:.2f}/{plain[1]:.2f} ms; bytes bound "
+          f"{entry['bound_ms']:.6f} ms, serial floor {entry['serial_floor_ms']:.4f} ms")
+    for rows in (1, 2):
+        u = torch.randn((rows, n), generator=gen, device=dev)
+        ms = queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, b), 3)
+        mhz = sm_clock_while(lambda: recurrence.first_order_recurrence_cuda(u, b))
+        cycles = ms * 1e-3 * mhz * 1e6 / n
+        key = f"fm_rows{rows}"
+        entry.update({f"ms_{key}": ms, f"bound_ms_{key}": 1e3 * 8 * rows * n / HBM_BYTES_PER_S,
+                      f"serial_floor_ms_{key}": n * probe["ns_per_step"] * 1e-6,
+                      f"sm_mhz_{key}": mhz, f"cycles_per_step_{key}": cycles})
+        phase("41 recursion timing", f"({rows}, {n}) float32: kernel {ms:.3f} ms queued "
+              f"({cycles:.2f} cycles a step at the {mhz:.0f} MHz nvidia-smi read while it ran); "
+              f"bytes bound {entry[f'bound_ms_{key}']:.4f} ms; serial floor "
+              f"{entry[f'serial_floor_ms_{key}']:.3f} ms")
+        del u
+    x = torch.randn((1, n), generator=gen, device=dev)
+    fir_entry = {}
+    for k in FM_FIR_TAPS:
+        taps = torch.randn(k, generator=gen, device=dev)
+        got = fir.fir_decimate_cuda(x, taps, 1, zero_state=True)
+        want = fir.fir_decimate(x, taps, 1, zero_state=True)
+        abs_err, rel = rel_err(got, want)
+        if not rel < FIR_REL_TOL:
+            raise AssertionError(f"fir_decimate at (1, {n}) K={k}: {rel:.3g}")
+        plain_fn = lambda: fir.fir_decimate(x, taps, 1, zero_state=True)
+        kern_fn = lambda: fir.fir_decimate_cuda(x, taps, 1, zero_state=True)
+        kern, plain = in_turns(plain_fn, kern_fn)
+        planes = F.pad(x[:, None, :], (k - 1, 0))
+        weight = taps.view(1, 1, -1)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_out = F.conv1d(planes, weight)
+            library = cuda_ms(lambda: F.conv1d(planes, weight))
+        _, lib_rel = rel_err(lib_out[:, 0], got)
+        if not lib_rel < FIR_REL_TOL:
+            raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
+        # float32 in and out, the taps once; 1 FMA (2 flops) per tap and output
+        b_ms, b_by = bound(4 * (n + k - 1) + 4 * k + 4 * got.shape[1], 2 * got.shape[1] * k)
+        fir_entry.update({f"ms_fm_k{k}": sum(kern) / 2, f"plain_ms_fm_k{k}": sum(plain) / 2,
+                          f"library_ms_fm_k{k}": library, f"bound_ms_fm_k{k}": b_ms,
+                          f"bound_by_fm_k{k}": b_by, f"max_abs_err_fm_k{k}": abs_err})
+        phase("41 fm fir", f"fir_decimate float32 (1, {n}) K={k} f=1 from zero state: kernel "
+              f"{kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.3f}/{plain[1]:.3f} ms, conv1d "
+              f"(cuDNN, FP32, max|Δ|/max|y| {lib_rel:.3g}) {library:.4f} ms; bound {b_ms:.4f} ms "
+              f"by {b_by}; max|Δ|/max|ref| {rel:.3g}")
+        del got, want, planes, lib_out
+    return {"first_order_iir": entry, "fir_decimate": fir_entry}
 
 
 def main() -> None:
@@ -2740,6 +3053,15 @@ def main() -> None:
     receiver_run = drive_receiver_gate(dev)
     receiver_timing = time_receiver_kernels(dev)
 
+    # The modem family: every function card against CPU with the packet's
+    # convolutional decode (each Viterbi kernel once), then the broadcast FM
+    # receiver at 1 s and 60 s with the counts set to 0 just before each and
+    # read just after (fir_decimate 9, first_order_iir 1), then the recursion
+    # kernel and the FIR at the FM path's shapes.
+    packet_timing = drive_family_gate(dev)
+    fm_run = drive_fm_broadcast(dev)
+    fm_timing = time_recursion_and_fm_fir(dev)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -2788,8 +3110,10 @@ def main() -> None:
             **coded_run["timing"][name],
             "launches_receiver_gate": receiver_run["packet"]["launches"][name],
             **receiver_timing[name],
+            **packet_timing[name],
             "library_ms": None,
             "library_ms_receiver": None,
+            "library_ms_packet": None,
         })
     kernels.append({
         "name": "fir_decimate",
@@ -2800,6 +3124,9 @@ def main() -> None:
         **fir_timing,
         "launches_receiver_gate": receiver_run["packet"]["launches"]["fir_decimate"],
         **receiver_timing["fir_decimate"],
+        "launches_fm_gate": fm_run["60 s"]["launches"]["fir_decimate"],
+        "launches_fm_gate_1s": fm_run["1 s"]["launches"]["fir_decimate"],
+        **fm_timing["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -2809,6 +3136,17 @@ def main() -> None:
         "launches": nco_launches,
         **nco_timing,
         "library_ms": None,
+    })
+    kernels.append({
+        "name": "first_order_iir",
+        "route": "cuda",
+        "source": "r4w_tpu_torch/csrc/first_order_iir.cu",
+        "replaces": None,
+        "stands_for": ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
+                       "r4w_tpu/ops/filters2.py:454"],
+        "launches": fm_run["60 s"]["launches"]["first_order_iir"],
+        "launches_fm_gate_1s": fm_run["1 s"]["launches"]["first_order_iir"],
+        **fm_timing["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,8 +54,11 @@ recovery, 4th-power phase, soft Viterbi over every timing and phase
 hypothesis as lanes of one decode), PN channel sounding into MLSE over a
 3-tap ISI channel, MAP decoding into a soft chain and MLSE against a DFE
 on a spectral null; at the reference's 1,024 bits, or at a 1,500-byte
-packet's 12,000. Every entry point runs on the CUDA card unless the
-caller names another device.
+packet's 12,000. `fm_broadcast_gate(device)` receives one minute of a
+stereo station with RDS through the reference's broadcast chain, and
+`modem_family_gate(device)` runs the modem family card against CPU; both
+live in `modem_gates` and are re-exported here. Every entry point runs on
+the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from r4w_tpu_torch.fec.interleave import block_deinterleave, block_interleave
 from r4w_tpu_torch.gnss import acquisition, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.kernels import viterbi
+from r4w_tpu_torch.modem_gates import fm_broadcast_gate, modem_family_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

@@ -7,6 +7,11 @@ from r4w_tpu_torch.kernels.dechirp import (
 )
 from r4w_tpu_torch.kernels.fir import fir_decimate, fir_decimate_cuda, fir_decimate_dispatch
 from r4w_tpu_torch.kernels.nco import nco_mix, nco_mix_cuda, nco_mix_dispatch
+from r4w_tpu_torch.kernels.recurrence import (
+    first_order_recurrence,
+    first_order_recurrence_cuda,
+    first_order_recurrence_dispatch,
+)
 from r4w_tpu_torch.kernels.viterbi import (
     viterbi_forward,
     viterbi_forward_cuda,
@@ -23,6 +28,9 @@ __all__ = [
     "fir_decimate",
     "fir_decimate_cuda",
     "fir_decimate_dispatch",
+    "first_order_recurrence",
+    "first_order_recurrence_cuda",
+    "first_order_recurrence_dispatch",
     "nco_mix",
     "nco_mix_cuda",
     "nco_mix_dispatch",

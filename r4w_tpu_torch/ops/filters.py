@@ -21,12 +21,17 @@ convolution, and so no cuDNN TF32, is on the path. The oscillator of
 The design functions are numpy copies of the reference's and return the
 same float32 (or float64) arrays bit for bit.
 
-The recursive filters (`iir_filter`, `single_pole_iir`, `dc_blocker`) are
-step loops over the samples, as the reference's ``lax.scan`` is: each
+The one-pole filters (`single_pole_iir`, `dc_blocker`) compute their
+input term for the whole block (α·x, or x[n] − x[n-1]) and run the linear
+first-order recursion y[n] = u[n] + b·y[n-1] through
+`kernels.recurrence.first_order_recurrence_dispatch`: the plain step loop
+on a CPU tensor, one launch of the Hopper kernel on a CUDA tensor, the
+product and the sum each rounded as the loop rounds them, with the carried
+state a tensor on the samples' device. `iir_filter` of general order stays
+a step loop over the samples, as the reference's ``lax.scan`` is: each
 step's input products are computed for the whole block first (the same
 float32 products the reference's step makes), so a step is the few
-launches of the recursion itself, and the carried state stays a tensor on
-the samples' device. The CIC integrators are cumulative sums with carried
+launches of the recursion itself. The CIC integrators are cumulative sums with carried
 accumulators (`_cumsum`); the median filter sorts edge-padded windows.
 """
 
@@ -41,6 +46,7 @@ from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE, to_tensor
 from r4w_tpu_torch.core.windows import _np_window
 from r4w_tpu_torch.kernels.fir import fir_decimate_dispatch
 from r4w_tpu_torch.kernels.nco import nco_mix_dispatch
+from r4w_tpu_torch.kernels.recurrence import first_order_recurrence_dispatch, initial_state
 
 
 def _signal(x) -> torch.Tensor:
@@ -182,13 +188,10 @@ def _median(v: torch.Tensor) -> torch.Tensor:
 def single_pole_iir(alpha: float, x, state=None):
     """y[n] = α·x[n] + (1-α)·y[n-1] (single_pole_iir.rs)."""
     x = _signal(x)
-    y = x.new_zeros(x.shape[:-1]) if state is None else to_tensor(state, x.dtype, x.device)
-    ax = alpha * x
-    ys = []
-    for t in range(x.shape[-1]):
-        y = ax[..., t] + (1.0 - alpha) * y
-        ys.append(y)
-    return _stack_steps(ys, x), y
+    y = first_order_recurrence_dispatch(alpha * x, 1.0 - alpha, state)
+    if x.shape[-1] == 0:
+        return y, initial_state(x, state)
+    return y, y[..., -1]
 
 
 def dc_blocker(x, alpha: float = 0.995, state=None):
@@ -196,18 +199,15 @@ def dc_blocker(x, alpha: float = 0.995, state=None):
     x = _signal(x)
     if state is None:
         xprev = x.new_zeros(x.shape[:-1])
-        yprev = x.new_zeros(x.shape[:-1])
+        yprev = None
     else:
         xprev = to_tensor(state[0], x.dtype, x.device)
         yprev = to_tensor(state[1], x.dtype, x.device)
     if x.shape[-1] == 0:
-        return x.new_zeros(x.shape), (xprev, yprev)
-    diff = x - torch.cat([xprev[..., None], x[..., :-1]], dim=-1)
-    y, ys = yprev, []
-    for t in range(x.shape[-1]):
-        y = diff[..., t] + alpha * y
-        ys.append(y)
-    return torch.stack(ys, dim=-1), (x[..., -1], y)
+        return x.new_zeros(x.shape), (xprev, initial_state(x, yprev))
+    diff = x - torch.cat([xprev[..., None].expand(x.shape[:-1] + (1,)), x[..., :-1]], dim=-1)
+    y = first_order_recurrence_dispatch(diff, alpha, yprev)
+    return y, (x[..., -1], y[..., -1])
 
 
 def _cumsum(v: torch.Tensor) -> torch.Tensor:

@@ -290,13 +290,14 @@ def test_module_imports_without_nvcc():
     code = ("import sys\n"
             "import r4w_tpu_torch.kernels.viterbi as v\n"
             "import r4w_tpu_torch.fec, r4w_tpu_torch.ops.stream_math\n"
-            "from r4w_tpu_torch.kernels import _build, fir, nco\n"
+            "from r4w_tpu_torch.kernels import _build, fir, nco, recurrence\n"
             "assert _build.load_library.cache_info().currsize == 0\n"
             "assert v._kernels.cache_info().currsize == 0\n"
             "assert fir._kernel.cache_info().currsize == nco._kernel.cache_info().currsize == 0\n"
+            "assert recurrence._kernel.cache_info().currsize == 0\n"
             "assert 'triton' not in sys.modules\n"
-            "assert sorted(_build.sources()) == ['dechirp_power', 'fir_decimate', 'nco_mix', "
-            "'viterbi']\n"
+            "assert sorted(_build.sources()) == ['dechirp_power', 'fir_decimate', "
+            "'first_order_iir', 'nco_mix', 'viterbi']\n"
             "try:\n"
             "    _build._nvcc()\n"
             "except RuntimeError as e:\n"
