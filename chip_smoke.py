@@ -93,14 +93,26 @@ at one minute of a station (14.4 M IQ samples at 240 kS/s), each with the
 counts set to 0 just before it and read just after (every bar;
 fir_decimate 9 and first_order_iir 1 launches at both lengths), holds a
 2 s station's card results against a CPU run, and profiles one warm
-chain; phase 41 holds the recursion kernel bit for bit against its plain
-step loop (at the FM path's (1, 14.4 M) through ``step_loop``, the loop's
-arithmetic in numpy), times it at (1, 2^15), (1, 14.4 M) and (2, 14.4 M)
-beside its bytes bound and its serial floor (the bare chain, timed on the
-card by ``chain_probe``), and times the FIR at (1, 14.4 M) float32 for
-K = 301, 201 and 101 beside its plain version, cuDNN's conv1d and its
-bound. Each
-phase prints at least one line; a failed phase raises,
+chain; phase 41 holds the recursion kernel's linear kind bit for bit
+against its plain step loop (at the FM path's (1, 14.4 M) too), times it
+at (1, 2^15), (1, 14.4 M) and (2, 14.4 M) beside its bytes bound and its
+serial floor (the bare chain, timed on the card by ``chain_probe``), and
+times the FIR at (1, 14.4 M) float32 for K = 301, 201 and 101 beside its
+plain version, cuDNN's conv1d and its bound. Then the stream and detection
+slice: phase 42 runs ``dsp_blocks_gate()`` (every function of stream_math,
+filters2, stream_blocks, detect, adaptive and kalman on its JAX test's
+inputs, card against CPU, and each recursion kind at (4, 2^20) bit for
+bit); phase 43 runs ``spectrum_monitor_gate()``, a wideband spectrum
+monitor on 32 blocks of 2^20 samples at 30.72 MS/s (spectrum sensing, four
+down-converters, the burst gate, squelch, envelope and peak hold), with
+the counts set to 0 just before it and read just after (every bar;
+nco_mix 4, fir_decimate 4 and first_order_iir 3 launches, one a kind),
+holds a 2-block capture's card results against a CPU run, profiles one
+warm chain and times the NCO and FIR kernels at the monitor's shapes;
+phase 44 holds each recursion kind bit for bit against its plain version
+at (4, 2^20), (1, 2^15), complex (8, 4096) and, for the two linear forms,
+(1, 14.4 M), and times each beside its bare chain, its bytes bound and
+its plain loop. Each phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -161,6 +173,11 @@ from r4w_tpu_torch.modem_gates import (FAMILY_DFT_TOL, FAMILY_PHASE_TOL, FAMILY_
                                        fm_broadcast_gate, modem_family_gate)
 from r4w_tpu_torch.modem_gates import PACKET_BYTES as FAMILY_PACKET_BYTES
 from r4w_tpu_torch.modem_gates import launch_counts as fm_counts
+from r4w_tpu_torch.monitor_gates import (MONITOR_BLOCK, MONITOR_DECIMATION, MONITOR_RATE_HZ,
+                                         MONITOR_RECURSIONS, MONITOR_ROWS, RECURSION_COEFS,
+                                         RECURSION_SHAPE, dsp_blocks_gate,
+                                         monitor_agreement, spectrum_monitor_chain,
+                                         spectrum_monitor_gate)
 from r4w_tpu_torch.profiling import breakdown
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
@@ -289,6 +306,15 @@ FM_CARD_SECONDS = 2.0      # phase 40's station for the card against the CPU
 FM_CARD_TOL = 1e-4         # max|card - CPU| / max|CPU| of L, R, mono audio and the multiplex
 FM_FIR_TAPS = (301, 201, 101)  # the FM path's analytic bandpass and RDS lowpass, stereo lowpass, mono
 CLOCK_READ_CALLS = 24      # queued recursion calls at the FM row while nvidia-smi reads the clock
+# The stream and detection slice (phases 42-44)
+MONITOR_CARD_ROWS = 2      # phase 43's capture for the card against the CPU
+MONITOR_LAUNCHES = {"nco_mix": 4, "fir_decimate": 4, "first_order_iir": 3}
+CHAIN_PROBE_STEPS = 1 << 24
+RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
+                        "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
+                        "r4w_tpu/ops/filters2.py:454", "r4w_tpu/ops/stream_blocks.py:53",
+                        "r4w_tpu/ops/stream_blocks.py:72", "r4w_tpu/ops/stream_blocks.py:104",
+                        "r4w_tpu/ops/stream_blocks.py:206", "r4w_tpu/ops/adaptive.py:159"]
 
 
 def phase(name: str, message: str) -> None:
@@ -326,6 +352,13 @@ def queued_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn) -> float:
+    """Milliseconds of one call of `fn` on the host's clock (a CPU path)."""
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def rel_err(got, ref) -> tuple[float, float]:
     """(max|got - ref|, that over max|ref|)."""
     abs_err = float(torch.max(torch.abs(got - ref)))
@@ -361,7 +394,7 @@ def zero_launch_counts() -> None:
     viterbi.viterbi_traceback.launches = 0
     fir.fir_decimate.launches = 0
     nco.nco_mix.launches = 0
-    recurrence.first_order_recurrence.launches = 0
+    recurrence.reset_launches()
 
 
 def randn_iq(shape, gen: torch.Generator) -> torch.Tensor:
@@ -2642,38 +2675,35 @@ def drive_fm_broadcast(dev: torch.device) -> dict:
     return runs
 
 
-def step_loop(u: np.ndarray, b: float, y0: float = 0.0) -> np.ndarray:
-    """One float32 row of the recursion y[n] = u[n] + b·y[n-1] in numpy
-    float32 scalars: the plain step loop's arithmetic (the product rounded,
-    then the sum), at a speed that reaches the FM path's 14.4 M steps,
-    where the plain loop's 28.8 M launches do not."""
-    coef, y = np.float32(b), np.float32(y0)
-    out = np.empty_like(u)
-    for t in range(u.shape[0]):
-        y = u[t] + coef * y
-        out[t] = y
-    return out
-
-
-def chain_probe(steps: int, b: float) -> dict:
-    """The recursion's bare chain on the card (`first_order_iir_chain_probe`
-    in csrc/first_order_iir.cu: one thread, `steps` dependent float32
-    products and sums): its cycles and nanoseconds a step, the SM clock
-    (MHz) while it ran, and its last y. Timed on its second launch."""
+def chain_probe(steps: int, kind: str, c0: float, c1: float = 0.0) -> dict:
+    """A recursion kind's bare chain on the card (`first_order_iir_chain_probe`
+    in csrc/first_order_iir.cu: one thread, `steps` dependent steps of
+    `kind` on inputs held in registers): its cycles and nanoseconds a step,
+    the SM clock (MHz) while it ran, and its last y. Timed on its second
+    launch."""
     fn = _build.load_library("first_order_iir").r4w_first_order_iir_chain_probe
-    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 4
+                   + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     y = torch.empty(1, device="cuda")
     ticks = torch.zeros(2, dtype=torch.int64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     for _ in range(2):
-        err = fn(steps, b, 0.5, -0.25, y.data_ptr(), ticks.data_ptr(), ticks.data_ptr() + 8,
-                 stream)
+        err = fn(steps, recurrence.KINDS.index(kind), recurrence.coefficient(c0),
+                 recurrence.coefficient(c1), 0.5, -0.25, y.data_ptr(), ticks.data_ptr(),
+                 ticks.data_ptr() + 8, stream)
         if err != 0:
             raise RuntimeError(f"first_order_iir_chain_probe launch failed with cudaError {err}")
     cycles, ns = (int(v) for v in ticks.cpu())
     return {"cycles_per_step": cycles / steps, "ns_per_step": ns / steps,
             "sm_mhz": 1e3 * cycles / ns, "y": float(y.cpu()[0])}
+
+
+def probe_chain_value(steps: int, kind: str, c0: float, c1: float = 0.0) -> float:
+    """The chain probe's last y by the plain version: its inputs cycle
+    0.5, -0.25, -0.5, 0.25 from y = 0."""
+    u = torch.tensor([0.5, -0.25, -0.5, 0.25]).repeat(steps // 4)[None]
+    return float(recurrence.first_order_recurrence(u, kind, c0, c1)[0, -1])
 
 
 def sm_clock_while(fn, calls: int = CLOCK_READ_CALLS) -> float:
@@ -2689,18 +2719,18 @@ def sm_clock_while(fn, calls: int = CLOCK_READ_CALLS) -> float:
 
 
 def time_recursion_and_fm_fir(dev: torch.device) -> dict:
-    """Phase 41: the recursion kernel against its plain version bit for bit at
+    """Phase 41: the recursion kernel's linear kind (the FM path's
+    de-emphasis, y = fma(b, y, u)) against its plain version bit for bit at
     (1, 2^15) and (64, 4096) float32 and (8, 4096) complex64 (with and
-    without a state) and at the FM path's (1, 14.4 M) with a state (against
-    `step_loop`, which equals the plain loop on the first 2^15 steps here
-    and in the CPU tests); timed queued at (1, 2^15) beside the plain step
-    loop and at (1, 14.4 M) and (2, 14.4 M), with its bytes bound and its
-    serial floor: the steps times the measured time a step of the bare
-    chain (`chain_probe`), whose cycles a step and SM clock it reports
-    beside the kernel's cycles a step at the clock nvidia-smi reads while
-    it runs. Then the FIR kernel at (1, 14.4 M) float32 for K = 301, 201
-    and 101 (the FM path's filters): kernel, plain, cuDNN conv1d with TF32
-    off, bound. Returns the kernel line's entries."""
+    without a state) and at the FM path's (1, 14.4 M) with a state; timed
+    queued at (1, 2^15) beside the plain step loop (on the host) and at
+    (1, 14.4 M) and (2, 14.4 M), with its bytes bound and its serial floor:
+    the steps times the measured time a step of the bare chain
+    (`chain_probe`), whose cycles a step and SM clock it reports beside the
+    kernel's cycles a step at the clock nvidia-smi reads while it runs.
+    Then the FIR kernel at (1, 14.4 M) float32 for K = 301, 201 and 101
+    (the FM path's filters): kernel, plain, cuDNN conv1d with TF32 off,
+    bound. Returns the kernel line's entries."""
     gen = torch.Generator(device=dev).manual_seed(41)
     b = 1.0 - 1.0 / 9.0
     for shape, dtype in (((1, 1 << 15), torch.float32), ((64, 4096), torch.float32),
@@ -2708,45 +2738,41 @@ def time_recursion_and_fm_fir(dev: torch.device) -> dict:
         u = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
         state = torch.randn(shape[:1], generator=gen, device=dev, dtype=dtype)
         for st in (None, state):
-            got = recurrence.first_order_recurrence_cuda(u, b, st)
-            want = recurrence.first_order_recurrence(u, b, st)
-            if not torch.equal(got, want):
+            got = recurrence.first_order_recurrence_cuda(u, "linear", b, state=st)
+            want = recurrence.first_order_recurrence(u.cpu(), "linear", b,
+                                                     state=None if st is None else st.cpu())
+            if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"first_order_iir at {shape} {dtype}: differs from the plain "
-                                     f"loop by {float(torch.max(torch.abs(got - want))):.3g}")
+                                     f"loop by {float(torch.max(torch.abs(got.cpu() - want))):.3g}")
     n = int(FM_SECONDS * FM_RATE_HZ)
     u = torch.randn((1, n), generator=gen, device=dev)
     state = torch.randn((1,), generator=gen, device=dev)
-    got = recurrence.first_order_recurrence_cuda(u, b, state)[0].cpu().numpy()
-    u_host, y0 = u[0].cpu().numpy(), float(state.cpu()[0])
-    head = recurrence.first_order_recurrence(torch.from_numpy(u_host[None, :1 << 15]), b,
-                                             state.cpu())[0].numpy()
-    if not np.array_equal(step_loop(u_host[:1 << 15], b, y0), head):
-        raise AssertionError("step_loop differs from the plain step loop")
+    got = recurrence.first_order_recurrence_cuda(u, "linear", b, state=state).cpu()
     t0 = time.perf_counter()
-    want = step_loop(u_host, b, y0)
+    want = recurrence.first_order_recurrence(u.cpu(), "linear", b, state=state.cpu())
     loop_s = time.perf_counter() - t0
-    max_abs_err = float(np.max(np.abs(got.astype(np.float64) - want)))
-    if not np.array_equal(got, want):
-        raise AssertionError(f"first_order_iir at (1, {n}): differs from the step loop by "
-                             f"{max_abs_err:.3g} at {int(np.count_nonzero(got != want))} samples")
-    phase("41 recursion", f"first_order_iir equals the plain step loop bit for bit at (1, 32768) "
-          f"and (64, 4096) float32 and (8, 4096) complex64, with and without a state, and "
-          f"at the FM path's (1, {n}) with a state (max|Δ| {max_abs_err}) against the step "
-          f"loop in numpy float32 ({loop_s:.1f} s on the host), which equals the plain loop on "
-          f"its first 32768 steps")
-    del u, state, got, u_host, want, head
-    probe = chain_probe(n, b)
-    small = chain_probe(1 << 12, b)
-    if not small["y"] == float(step_loop(np.tile(np.float32([0.5, -0.25, -0.5, 0.25]), 1 << 10),
-                                         b)[-1]):
+    max_abs_err = float(torch.max(torch.abs(got.double() - want.double())))
+    if not torch.equal(got, want):
+        raise AssertionError(f"first_order_iir at (1, {n}): differs from the plain loop by "
+                             f"{max_abs_err:.3g} at {int(torch.sum(got != want))} samples")
+    phase("41 recursion", f"first_order_iir (linear) equals the plain step loop bit for bit at "
+          f"(1, 32768) and (64, 4096) float32 and (8, 4096) complex64, with and without a "
+          f"state, and at the FM path's (1, {n}) with a state (max|Δ| {max_abs_err}; the plain "
+          f"loop {loop_s:.1f} s on the host)")
+    del u, state, got, want
+    probe = chain_probe(n, "linear", b)
+    small = chain_probe(1 << 12, "linear", b)
+    if not small["y"] == probe_chain_value(1 << 12, "linear", b):
         raise AssertionError(f"the chain probe computes another chain: {small['y']}")
-    phase("41 recursion floor", f"the bare chain ({n} dependent float32 products and sums in "
-          f"one thread): {probe['cycles_per_step']:.4f} cycles a step, "
+    phase("41 recursion floor", f"the bare linear chain ({n} dependent float32 fused "
+          f"multiply-adds in one thread): {probe['cycles_per_step']:.4f} cycles a step, "
           f"{probe['ns_per_step']:.5f} ns a step, the SM at {probe['sm_mhz']:.1f} MHz")
     u = torch.randn((1, 1 << 15), generator=gen, device=dev)
-    plain = [cuda_ms(lambda: recurrence.first_order_recurrence(u, b), 1)]
-    kern = [queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, b)) for _ in range(2)]
-    plain.append(cuda_ms(lambda: recurrence.first_order_recurrence(u, b), 1))
+    u_host = u.cpu()
+    plain = [host_ms(lambda: recurrence.first_order_recurrence(u_host, "linear", b))]
+    kern = [queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, "linear", b))
+            for _ in range(2)]
+    plain.append(host_ms(lambda: recurrence.first_order_recurrence(u_host, "linear", b)))
     steps = 1 << 15
     entry = {"ms": sum(kern) / 2, "plain_ms": sum(plain) / 2, "shape": [1, steps],
              "bound_ms": 1e3 * 8 * steps / HBM_BYTES_PER_S, "bound_by": "bytes",
@@ -2754,12 +2780,12 @@ def time_recursion_and_fm_fir(dev: torch.device) -> dict:
              "chain_cycles_per_step": probe["cycles_per_step"], "chain_sm_mhz": probe["sm_mhz"],
              "max_abs_err": max_abs_err, "max_abs_err_shape": [1, n], "library_ms": None}
     phase("41 recursion timing", f"(1, {steps}) float32: kernel {kern[0]:.4f}/{kern[1]:.4f} ms "
-          f"queued, plain step loop {plain[0]:.2f}/{plain[1]:.2f} ms; bytes bound "
+          f"queued, plain step loop (host) {plain[0]:.2f}/{plain[1]:.2f} ms; bytes bound "
           f"{entry['bound_ms']:.6f} ms, serial floor {entry['serial_floor_ms']:.4f} ms")
     for rows in (1, 2):
         u = torch.randn((rows, n), generator=gen, device=dev)
-        ms = queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, b), 3)
-        mhz = sm_clock_while(lambda: recurrence.first_order_recurrence_cuda(u, b))
+        ms = queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, "linear", b), 3)
+        mhz = sm_clock_while(lambda: recurrence.first_order_recurrence_cuda(u, "linear", b))
         cycles = ms * 1e-3 * mhz * 1e6 / n
         key = f"fm_rows{rows}"
         entry.update({f"ms_{key}": ms, f"bound_ms_{key}": 1e3 * 8 * rows * n / HBM_BYTES_PER_S,
@@ -2801,6 +2827,209 @@ def time_recursion_and_fm_fir(dev: torch.device) -> dict:
               f"by {b_by}; max|Δ|/max|ref| {rel:.3g}")
         del got, want, planes, lib_out
     return {"first_order_iir": entry, "fir_decimate": fir_entry}
+
+
+def drive_blocks_gate(dev: torch.device) -> dict:
+    """Phase 42: `dsp_blocks_gate()` on the card: every function of
+    stream_math, filters2, stream_blocks, detect, adaptive and kalman on its
+    JAX test's inputs, card against CPU (decisions equal, floats within the
+    stated tolerances), and each recursion kind at (4, 2^20) card = CPU bit
+    for bit."""
+    gate = dsp_blocks_gate(dev, RECURSION_SHAPE)
+    if not gate["ok"]:
+        raise AssertionError(f"dsp blocks gate: failed "
+                             f"{ {k: gate['worst'][k] for k in gate['failed']} }, recursion diffs "
+                             f"{gate['recursion_diffs']}")
+    top = sorted(gate["worst"].items(), key=lambda kv: -kv[1])[:5]
+    phase("42 blocks gate", f"{len(gate['worst'])} cases card = CPU on {dev} (decisions equal, "
+          f"floats within their tolerances); largest " + ", ".join(f"{k} {v:.3g}" for k, v in top)
+          + f"; each recursion kind at {RECURSION_SHAPE} differs in "
+          f"{json.dumps(gate['recursion_diffs'])} samples")
+    return gate
+
+
+def monitor_launch_check(counts: dict, by_kind: dict) -> None:
+    want = dict.fromkeys(counts, 0)
+    want.update(MONITOR_LAUNCHES)
+    want_kinds = {**dict.fromkeys(recurrence.KINDS, 0), **MONITOR_RECURSIONS}
+    if counts != want or by_kind != want_kinds:
+        raise AssertionError(f"spectrum monitor: launches {counts} by kind {by_kind}, want {want} "
+                             f"by kind {want_kinds}")
+
+
+def drive_spectrum_monitor(dev: torch.device) -> dict:
+    """Phase 43: `spectrum_monitor_gate()` at its full width (32 blocks of
+    2^20 samples at 30.72 MS/s, 1.092 s) with the counts set to 0 just
+    before it and read just after: every bar met, nco_mix and fir_decimate 4
+    launches each and the recursion 3 (ema, attack_release, peak_hold once
+    each), no other hand-written kernel. Then the card against a CPU run
+    at 2 blocks (`monitor_agreement`: decisions equal but at counted ties,
+    series within tolerance), one warm chain on the card-resident capture
+    under the profiler, and the NCO and FIR kernels at the monitor's shapes
+    beside their plain versions, cuDNN's conv1d and their bounds."""
+    zero_launch_counts()
+    gate = spectrum_monitor_gate(dev, MONITOR_ROWS)
+    counts = fm_counts()
+    by_kind = dict(recurrence.first_order_recurrence.launches_by_kind)
+    monitor_launch_check(counts, by_kind)
+    b = gate["bars"]
+    if not gate["ok"]:
+        raise AssertionError(f"spectrum monitor: bars {b}")
+    phase("43 spectrum monitor", f"{gate['samples']} samples ({MONITOR_ROWS} × {MONITOR_BLOCK}) "
+          f"at {MONITOR_RATE_HZ:.0f} S/s on {dev}: groups at bins {b['centre_bins']} (planted "
+          f"{b['planted_bins']}); bursts {b['bursts']} of {b['bursts_planted']} planted, worst "
+          f"edge {b['worst_edge_frames']} frames; squelch open {b['open']}, closed "
+          f"{b['closed']}; envelope median in bursts {b['env_in']}, outside {b['env_out']}; "
+          f"peak hold max {b['peak_max']:.4f}; stage ms {json.dumps(gate['stage_ms'])}; "
+          f"launches {json.dumps(counts)} by kind {json.dumps(by_kind)}; "
+          f"{gate['seconds']:.4f} s end to end")
+    capture = gate["capture"]
+    run = {"launches": counts, "by_kind": by_kind, "stage_ms": gate["stage_ms"],
+           "seconds": gate["seconds"], "bars": b}
+    del gate
+    warm = []
+    for _ in range(2):  # the chain again on the card-resident capture, its kernels loaded
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spectrum_monitor_chain(capture)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    run["warm_chain_s"] = warm
+    phase("43 monitor warm", f"the chain again on the card-resident capture: "
+          f"{warm[0]:.4f}/{warm[1]:.4f} s")
+    prof = breakdown(lambda: spectrum_monitor_chain(capture))
+    phase("43 monitor profile", f"one warm chain on the card-resident capture under the "
+          f"profiler: {prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    run["profile"] = prof
+    card = spectrum_monitor_gate(dev, MONITOR_CARD_ROWS)["outputs"]
+    cpu = spectrum_monitor_gate("cpu", MONITOR_CARD_ROWS)["outputs"]
+    agreement = monitor_agreement(card, cpu)
+    if not agreement["ok"]:
+        raise AssertionError(f"spectrum monitor: card against CPU {agreement}")
+    phase("43 monitor card vs cpu", f"{MONITOR_CARD_ROWS} blocks: " + json.dumps(agreement))
+    run["card_vs_cpu"] = agreement
+    del card, cpu
+    run["timing"] = time_monitor_kernels(capture)
+    return run
+
+
+def time_monitor_kernels(capture: torch.Tensor) -> dict:
+    """nco_mix and fir_decimate at the monitor's shapes, (32, 2^20) c64 and
+    K = 63 with f = 32 from zero state: kernel and plain in turns, cuDNN's
+    conv1d (FP32, two planes, groups=2, stride 32) as the FIR's yardstick,
+    each beside its bound."""
+    freq = 2.88e6
+    base = nco.nco_mix_cuda(capture, -freq, MONITOR_RATE_HZ)
+    _, nco_rel = rel_err(base, nco.nco_mix(capture, -freq, MONITOR_RATE_HZ))
+    if not nco_rel < NCO_REL_TOL:
+        raise AssertionError(f"nco_mix at the monitor's shape: {nco_rel:.3g}")
+    kern, plain = in_turns(lambda: nco.nco_mix(capture, -freq, MONITOR_RATE_HZ),
+                           lambda: nco.nco_mix_cuda(capture, -freq, MONITOR_RATE_HZ))
+    b_ms, b_by = bound(16 * capture.numel(), 0)
+    out = {"nco_mix": {"ms_monitor": sum(kern) / 2, "plain_ms_monitor": sum(plain) / 2,
+                       "bound_ms_monitor": b_ms, "bound_by_monitor": b_by,
+                       "library_ms_monitor": None, "shape_monitor": list(capture.shape)}}
+    phase("43 monitor nco", f"nco_mix at {tuple(capture.shape)}: kernel {kern[0]:.4f}/"
+          f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms; bound {b_ms:.4f} ms by "
+          f"{b_by}; max|Δ|/max|plain| {nco_rel:.3g}")
+    rows, n = capture.shape
+    taps = torch.from_numpy(filters.design_lowpass(
+        DDC_TAPS, MONITOR_RATE_HZ / (2.5 * MONITOR_DECIMATION), MONITOR_RATE_HZ)).to(capture.device)
+    rev = taps.flip(0)
+    got = fir.fir_decimate_cuda(base, rev, MONITOR_DECIMATION, zero_state=True)
+    abs_err, rel = rel_err(got, fir.fir_decimate(base, rev, MONITOR_DECIMATION, zero_state=True))
+    if not rel < FIR_REL_TOL:
+        raise AssertionError(f"fir_decimate at the monitor's shape: {rel:.3g}")
+    kern, plain = in_turns(
+        lambda: fir.fir_decimate(base, rev, MONITOR_DECIMATION, zero_state=True),
+        lambda: fir.fir_decimate_cuda(base, rev, MONITOR_DECIMATION, zero_state=True))
+    planes = F.pad(torch.view_as_real(base).permute(0, 2, 1), (DDC_TAPS - 1, 0)).contiguous()
+    weight = rev.view(1, 1, -1).repeat(2, 1, 1)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_out = F.conv1d(planes, weight, stride=MONITOR_DECIMATION, groups=2)
+        library = cuda_ms(lambda: F.conv1d(planes, weight, stride=MONITOR_DECIMATION, groups=2))
+    _, lib_rel = rel_err(torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()), got)
+    if not lib_rel < FIR_REL_TOL:
+        raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
+    b_ms, b_by = fir_bound(rows, n + DDC_TAPS - 1, DDC_TAPS, MONITOR_DECIMATION)
+    out["fir_decimate"] = {"ms_monitor": sum(kern) / 2, "plain_ms_monitor": sum(plain) / 2,
+                           "library_ms_monitor": library, "bound_ms_monitor": b_ms,
+                           "bound_by_monitor": b_by, "max_abs_err_monitor": abs_err,
+                           "shape_monitor": [rows, n, DDC_TAPS, MONITOR_DECIMATION]}
+    phase("43 monitor fir", f"fir_decimate c64 ({rows}, {n}) K={DDC_TAPS} f={MONITOR_DECIMATION} "
+          f"from zero state: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/"
+          f"{plain[1]:.4f} ms, conv1d (cuDNN, FP32, groups=2, max|Δ|/max|y| {lib_rel:.3g}) "
+          f"{library:.4f} ms; bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|ref| {rel:.3g}")
+    return out
+
+
+def _kind_input(kind: str, shape, gen: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    """Random samples for a kind: magnitudes (|randn|) for the envelope and
+    peak kinds, which rectify their input, signed samples for the rest."""
+    u = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+    return torch.abs(u) if kind in ("attack_release", "peak_hold") and not u.is_complex() else u
+
+
+def check_recursion_kinds(dev: torch.device) -> dict:
+    """Phase 44: each recursion kind on the card against its plain version
+    bit for bit at (4, 2^20), (1, 2^15) and complex (8, 4096), and the two
+    linear forms at the FM row's (1, 14.4 M); each kind's bare chain
+    (`chain_probe`), its time queued at (4, 2^20) and (1, 14.4 M) with the
+    cycles a step at the SM clock nvidia-smi reads while it runs, its bytes
+    bound, and the plain step loop's time (host) at (1, 2^15). Returns the
+    per-kind entries."""
+    gen = torch.Generator(device=dev).manual_seed(44)
+    n_fm = int(FM_SECONDS * FM_RATE_HZ)
+    table = {}
+    for kind, (c0, c1) in RECURSION_COEFS.items():
+        shapes = [(RECURSION_SHAPE, torch.float32), ((1, 1 << 15), torch.float32),
+                  ((8, 4096), torch.complex64)]
+        if kind in ("linear", "one_pole"):
+            shapes.append(((1, n_fm), torch.float32))
+        for shape, dtype in shapes:
+            u = _kind_input(kind, shape, gen, dtype)
+            state = _kind_input(kind, shape[:1], gen, dtype)
+            got = recurrence.first_order_recurrence_cuda(u, kind, c0, c1, state).cpu()
+            want = recurrence.first_order_recurrence(u.cpu(), kind, c0, c1, state.cpu())
+            if not torch.equal(got, want):
+                raise AssertionError(f"first_order_iir {kind} at {shape} {dtype}: differs from the "
+                                     f"plain loop at {int(torch.sum(got != want))} samples")
+        probe = chain_probe(CHAIN_PROBE_STEPS, kind, c0, c1)
+        small = chain_probe(1 << 12, kind, c0, c1)
+        if not small["y"] == probe_chain_value(1 << 12, kind, c0, c1):
+            raise AssertionError(f"the {kind} chain probe computes another chain: {small['y']}")
+        entry = {"chain_cycles_per_step": probe["cycles_per_step"],
+                 "chain_ns_per_step": probe["ns_per_step"], "chain_sm_mhz": probe["sm_mhz"]}
+        for label, shape in (("gate", RECURSION_SHAPE), ("fm", (1, n_fm))):
+            u = _kind_input(kind, shape, gen)
+            ms = queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, kind, c0, c1), 3)
+            mhz = sm_clock_while(lambda: recurrence.first_order_recurrence_cuda(u, kind, c0, c1),
+                                 max(4, int(2000 / max(ms, 1.0))))
+            steps = shape[1]
+            entry.update({f"ms_{label}": ms, f"shape_{label}": list(shape),
+                          f"bound_ms_{label}": 1e3 * 8 * shape[0] * steps / HBM_BYTES_PER_S,
+                          f"serial_floor_ms_{label}": steps * probe["ns_per_step"] * 1e-6,
+                          f"sm_mhz_{label}": mhz,
+                          f"cycles_per_step_{label}": ms * 1e-3 * mhz * 1e6 / steps})
+            del u
+        u_host = _kind_input(kind, (1, 1 << 15), gen).cpu()
+        entry["plain_ms"] = min(host_ms(lambda: recurrence.first_order_recurrence(
+            u_host, kind, c0, c1)) for _ in range(2))
+        entry["plain_shape"] = [1, 1 << 15]
+        table[kind] = entry
+        phase("44 recursion kinds", f"{kind} ({c0}, {c1}): card = plain bit for bit at "
+              + ", ".join(str(tuple(sh)) for sh, _ in shapes) + f"; bare chain "
+              f"{probe['cycles_per_step']:.3f} cycles a step ({probe['ns_per_step']:.4f} ns at "
+              f"{probe['sm_mhz']:.0f} MHz); kernel {entry['ms_gate']:.3f} ms at "
+              f"{RECURSION_SHAPE} ({entry['cycles_per_step_gate']:.2f} cycles a step at "
+              f"{entry['sm_mhz_gate']:.0f} MHz, floor {entry['serial_floor_ms_gate']:.3f} ms, "
+              f"bytes bound {entry['bound_ms_gate']:.4f} ms), {entry['ms_fm']:.3f} ms at "
+              f"(1, {n_fm}) ({entry['cycles_per_step_fm']:.2f} cycles a step, floor "
+              f"{entry['serial_floor_ms_fm']:.3f} ms); plain step loop (host) "
+              f"{entry['plain_ms']:.2f} ms at (1, 32768)")
+    return table
 
 
 def main() -> None:
@@ -3062,6 +3291,14 @@ def main() -> None:
     fm_run = drive_fm_broadcast(dev)
     fm_timing = time_recursion_and_fm_fir(dev)
 
+    # The stream and detection slice: every block card against CPU, then the
+    # wideband spectrum monitor at full width with the counts set to 0 just
+    # before it and read just after (nco_mix 4, fir_decimate 4,
+    # first_order_iir 3), then each recursion kind against its plain version.
+    drive_blocks_gate(dev)
+    monitor_run = drive_spectrum_monitor(dev)
+    kind_timing = check_recursion_kinds(dev)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -3127,6 +3364,8 @@ def main() -> None:
         "launches_fm_gate": fm_run["60 s"]["launches"]["fir_decimate"],
         "launches_fm_gate_1s": fm_run["1 s"]["launches"]["fir_decimate"],
         **fm_timing["fir_decimate"],
+        "launches_monitor_gate": monitor_run["launches"]["fir_decimate"],
+        **monitor_run["timing"]["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -3136,17 +3375,21 @@ def main() -> None:
         "launches": nco_launches,
         **nco_timing,
         "library_ms": None,
+        "launches_monitor_gate": monitor_run["launches"]["nco_mix"],
+        **monitor_run["timing"]["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
         "route": "cuda",
         "source": "r4w_tpu_torch/csrc/first_order_iir.cu",
         "replaces": None,
-        "stands_for": ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
-                       "r4w_tpu/ops/filters2.py:454"],
+        "stands_for": RECURSION_STANDS_FOR,
         "launches": fm_run["60 s"]["launches"]["first_order_iir"],
         "launches_fm_gate_1s": fm_run["1 s"]["launches"]["first_order_iir"],
         **fm_timing["first_order_iir"],
+        "launches_monitor_gate": monitor_run["launches"]["first_order_iir"],
+        "launches_monitor_by_kind": monitor_run["by_kind"],
+        "kinds": kind_timing,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ numpy, so that the port can put the reference's own noise for a seed
 through a channel without importing JAX. The random bits equal JAX's bit
 for bit; the normals agree within 3e-7 relative (about 1% of them differ
 by a float32 ulp or two, from the rounding of log1p and of erfinv's
-polynomial). `uniform` is ``jax.random.uniform`` in float32, bit for bit.
+polynomial). `uniform` is ``jax.random.uniform`` in float32, `randint`
+``jax.random.randint`` in int32 and `bernoulli` ``jax.random.bernoulli``,
+each bit for bit.
 Everything runs on the host; callers move the draws to their device.
 """
 
@@ -106,3 +108,23 @@ def normal(k: tuple[int, int], shape) -> np.ndarray:
     u = np.maximum(lo, (f * (hi - lo) + lo).astype(np.float32))
     return (np.float32(np.sqrt(2)) * erfinv(u)).reshape(shape)
 
+
+
+def randint(k: tuple[int, int], shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval, int32)``: two words a
+    value from the key's two halves (high, low), reduced modulo the span as
+    (high mod span)·(2^32 mod span) + low mod span, in uint32."""
+    n = int(np.prod(shape, dtype=np.int64))
+    k_hi, k_lo = split(k, 2)
+    hi, lo = random_bits(k_hi, n), random_bits(k_lo, n)
+    span = np.uint32(max(maxval - minval, 1) & 0xFFFFFFFF)
+    with np.errstate(over="ignore"):
+        mult = np.uint32((1 << 16) % int(span))
+        mult = np.uint32((mult * mult) % span)
+        offset = ((hi % span) * mult + lo % span) % span
+    return (np.int32(minval) + offset.astype(np.int32)).reshape(shape)
+
+
+def bernoulli(k: tuple[int, int], p: float, shape) -> np.ndarray:
+    """``jax.random.bernoulli(k, p, shape)``: a float32 uniform below p."""
+    return uniform(k, shape) < np.float32(p)

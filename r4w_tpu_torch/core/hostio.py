@@ -4,10 +4,19 @@ PyTorch counterpart of ``r4w_tpu.core.hostio.cis``. The rest of that
 module works around complex transfers and complex constants that some TPU
 runtimes lack; PyTorch has both (``.to(device)``,
 ``torch.zeros(..., dtype=torch.complex64)``), so nothing else is ported.
-`complex_abs` is |z| by the formula of the reference's compiled `abs`,
+`complex_abs` is |z| by the formula of the reference's compiled `abs`
+(`magnitude` takes it for complex samples and |x| for real ones),
 which torch's `abs` (√(re² + im²) or hypot) misses by an ulp in about a
 third of the values. `rounded_sum` is a sum rounded once to float32, the
 rounding of the multiply-adds that the reference's compiled loops fuse.
+
+Importing the module runs torch's CPU cos, sin, exp and log once on a few
+samples (`_initialise_vector_math`): their vectorised library initialises
+itself on its first call, and a first call long enough to be split across
+threads (more than 2048 floats) could read it half initialised in the
+second thread and return that half off by up to 1.5e-4 (measured: about
+one fresh process in a hundred, on the first call only; a first call on
+one thread never).
 """
 
 from __future__ import annotations
@@ -40,6 +49,13 @@ def complex_abs(z) -> torch.Tensor:
     return hi * torch.sqrt(one_plus.double()).to(REAL_DTYPE)
 
 
+def magnitude(x) -> torch.Tensor:
+    """|x| as float32: `complex_abs` for complex64, the plain |x| for real
+    samples (the reference's ``jnp.abs(x).astype(float32)``)."""
+    x = to_tensor(x)
+    return complex_abs(x) if x.is_complex() else torch.abs(x).to(REAL_DTYPE)
+
+
 def rounded_sum(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """a + b computed in float64 (either may be float32) and rounded once to
     float32, in one kernel (into `out` if given, which must alias neither).
@@ -50,3 +66,14 @@ def rounded_sum(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = Non
         out = torch.empty(torch.broadcast_shapes(a.shape, b.shape), dtype=REAL_DTYPE,
                           device=a.device)
     return torch.add(a, b, out=out)
+
+
+def _initialise_vector_math() -> None:
+    """One call each of torch's CPU cos, sin, exp and log on a single
+    thread, before any call long enough to run on several."""
+    probe = torch.zeros(8, dtype=REAL_DTYPE)
+    for fn in (torch.cos, torch.sin, torch.exp, torch.log):
+        fn(probe)
+
+
+_initialise_vector_math()

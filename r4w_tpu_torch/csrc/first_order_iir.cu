@@ -1,36 +1,46 @@
-// Linear first-order recursion for Hopper (sm_90a).
+// First-order recursions for Hopper (sm_90a), generic over the step.
 //
-// Stands for the lax.scan loops of the reference's one-pole filters
-// (r4w_tpu/ops/filters.py: single_pole_iir, dc_blocker;
-// r4w_tpu/ops/filters2.py: de_emphasis), which no Pallas kernel computes.
-// For each row of n steps and each of its `comps` interleaved float32
-// components (1 for float32 rows, 2 for complex64 rows: a complex row is
-// two real recursions):
+// Stands for the lax.scan loops of the reference's one-pole filters,
+// probes, envelope followers and peak hold (r4w_tpu/ops/filters.py:
+// single_pole_iir, dc_blocker; r4w_tpu/ops/filters2.py: de_emphasis,
+// noise_gate, _env_follow; r4w_tpu/ops/stream_blocks.py: the probes,
+// peak_hold, envelope_detector; r4w_tpu/ops/adaptive.py: comb_feedback),
+// which no Pallas kernel computes. For each row of n steps and each of its
+// `comps` interleaved float32 components (1 for float32 rows, 2 for
+// complex64 rows: a complex row is two real recursions):
 //
-//     y[j] = u[j] + b * y[j - 1],   y[-1] = state (zero for a null state)
+//     y[j] = step(y[j - 1], u[j]),   y[-1] = state (zero for a null state)
 //
-// with u laid out as u[(row * n + j) * comps + c]. The caller computes u
-// elementwise (alpha * x, x[j] - x[j-1], or x itself).
+// with u laid out as u[(row * n + j) * comps + c] and the step one of five
+// kinds (the ids of kernels/recurrence.py's KINDS), with coefficients c0, c1:
 //
-// Rounding: every step rounds the product and then the sum
-// (__fmul_rn, then __fadd_rn), never one fused multiply-add, which is what
-// the plain step loop computes with its two launches a step; the kernel
+//     0 linear          y = fma(c0, y, u)
+//     1 one_pole        y = fma(c0, u, c1 * y)
+//     2 ema             y = fma(c0, u - y, y)
+//     3 attack_release  y = fma(u > y ? c0 : c1, u - y, y)
+//     4 peak_hold       y = max(u, c0 * y)
+//
+// Rounding: each step rounds as the reference's compiled scan body, which
+// contracts a product and a sum into one fused multiply-add: __fmaf_rn,
+// __fmul_rn and __fsub_rn, which nvcc neither contracts further nor
+// splits. The plain step loop computes the same roundings; the kernel
 // equals it bit for bit.
 //
-// What bounds it: the serial chain. A step is one dependent multiply and
-// one dependent add, so one row of 14.4 M samples takes tens of ms whatever
-// the memory system does; the bytes (8 a sample) would take 0.034 ms. Rows
+// What bounds it: the serial chain. A step is two or three dependent
+// operations, so one row of 14.4 M samples takes tens of ms whatever the
+// memory system does; the bytes (8 a sample) would take 0.034 ms. Rows
 // and components run in parallel. `first_order_iir_chain_probe` below times
-// the bare chain, the floor this kernel is held to.
+// each kind's bare chain, the floor this kernel is held to.
 //
-// Design: one warp a row. Lane c < comps walks component c serially with
-// y in a register. The whole warp keeps the chain fed: tiles of kTile floats
-// of the row are staged into a ring of kStages shared-memory slots by
-// cp.async (4-byte copies, so any row offset and alignment works), kStages
-// - 1 tiles ahead of the chain; a lane reads its tile's u from shared memory
-// in unrolled runs that do not depend on y, so the loads are off the chain.
-// y overwrites u in the slot, and the warp stores the tile with coalesced
-// 4-byte stores before the slot is staged again.
+// Design: one warp a row, the step a functor the chain is templated on.
+// Lane c < comps walks component c serially with y in a register. The whole
+// warp keeps the chain fed: tiles of kTile floats of the row are staged into
+// a ring of kStages shared-memory slots by cp.async (4-byte copies, so any
+// row offset and alignment works), kStages - 1 tiles ahead of the chain; a
+// lane reads its tile's u from shared memory in unrolled runs that do not
+// depend on y, so the loads are off the chain. y overwrites u in the slot,
+// and the warp stores the tile with coalesced 4-byte stores before the slot
+// is staged again.
 
 #include <cuda_runtime.h>
 
@@ -53,6 +63,36 @@ __device__ __forceinline__ void wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// The steps. Each takes y[j - 1] and u[j] and returns y[j].
+struct Linear {
+  float b;
+  __device__ __forceinline__ float operator()(float y, float u) const { return __fmaf_rn(b, y, u); }
+};
+struct OnePole {
+  float a, b;
+  __device__ __forceinline__ float operator()(float y, float u) const {
+    return __fmaf_rn(a, u, __fmul_rn(b, y));
+  }
+};
+struct Ema {
+  float a;
+  __device__ __forceinline__ float operator()(float y, float u) const {
+    return __fmaf_rn(a, __fsub_rn(u, y), y);
+  }
+};
+struct AttackRelease {
+  float attack, release;
+  __device__ __forceinline__ float operator()(float y, float u) const {
+    return __fmaf_rn(u > y ? attack : release, __fsub_rn(u, y), y);
+  }
+};
+struct PeakHold {
+  float decay;
+  __device__ __forceinline__ float operator()(float y, float u) const {
+    return fmaxf(u, __fmul_rn(decay, y));
+  }
+};
+
 // Floats of the tile that starts at float `first` of a row of `total`.
 __device__ __forceinline__ int tile_floats(long long total, long long first) {
   return static_cast<int>(total - first < kTile ? total - first : kTile);
@@ -64,8 +104,8 @@ __device__ __forceinline__ void stage(float* slot, const float* row, long long f
 }
 
 // The chain over `steps` steps of component c held in `slot` (stride comps).
-template <int kComps>
-__device__ __forceinline__ float walk(float* slot, int steps, float b, float y) {
+template <int kComps, class Step>
+__device__ __forceinline__ float walk(float* slot, int steps, Step step, float y) {
   float* v = slot + threadIdx.x;
   int j = 0;
   for (; j + kUnroll <= steps; j += kUnroll) {
@@ -74,21 +114,21 @@ __device__ __forceinline__ float walk(float* slot, int steps, float b, float y) 
     for (int q = 0; q < kUnroll; ++q) u[q] = v[(j + q) * kComps];
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) {
-      y = __fadd_rn(u[q], __fmul_rn(b, y));
+      y = step(y, u[q]);
       v[(j + q) * kComps] = y;
     }
   }
   for (; j < steps; ++j) {
-    y = __fadd_rn(v[j * kComps], __fmul_rn(b, y));
+    y = step(y, v[j * kComps]);
     v[j * kComps] = y;
   }
   return y;
 }
 
-template <int kComps>
+template <int kComps, class Step>
 __global__ void __launch_bounds__(kWarp)
     first_order_iir_kernel(const float* __restrict__ u, const float* __restrict__ state,
-                           float* __restrict__ out, long long n, float b) {
+                           float* __restrict__ out, long long n, Step step) {
   __shared__ float ring[kStages][kTile];
   const long long row = blockIdx.x;
   const long long total = n * kComps;  // floats of this row
@@ -119,7 +159,7 @@ __global__ void __launch_bounds__(kWarp)
     const long long first = t * kTile;
     const int count = tile_floats(total, first);
     float* slot = ring[t % kStages];
-    if (threadIdx.x < kComps) y = walk<kComps>(slot, count / kComps, b, y);
+    if (threadIdx.x < kComps) y = walk<kComps>(slot, count / kComps, step, y);
     __syncwarp();
     for (int i = threadIdx.x; i < count; i += kWarp) dst[first + i] = slot[i];
     __syncwarp();  // the slot is read out before a later stage() writes it
@@ -128,12 +168,13 @@ __global__ void __launch_bounds__(kWarp)
 }
 
 // The chain's floor: one thread runs `steps` (a multiple of kUnroll)
-// dependent steps of the kernel's arithmetic on values held in registers,
-// and reads the SM's cycle counter and the global nanosecond timer around
-// them. No path launches it; it measures the cycles a step of the bare
-// chain and the SM clock while it runs.
+// dependent steps of one kind on values held in registers, and reads the
+// SM's cycle counter and the global nanosecond timer around them. No path
+// launches it; it measures the cycles a step of the bare chain and the SM
+// clock while it runs.
+template <class Step>
 __global__ void __launch_bounds__(1)
-    first_order_iir_chain_probe(long long steps, float b, float u0, float u1, float* y_out,
+    first_order_iir_chain_probe(long long steps, Step step, float u0, float u1, float* y_out,
                                 long long* cycles, unsigned long long* ns) {
   const float u[4] = {u0, u1, -u0, -u1};
   float y = 0.0f;
@@ -143,7 +184,7 @@ __global__ void __launch_bounds__(1)
   asm volatile("mov.u64 %0, %%clock64;" : "=l"(c0));
   for (long long j = 0; j < steps; j += kUnroll) {
 #pragma unroll
-    for (int q = 0; q < kUnroll; ++q) y = __fadd_rn(u[q & 3], __fmul_rn(b, y));
+    for (int q = 0; q < kUnroll; ++q) y = step(y, u[q & 3]);
   }
   // y as an operand: the reads cannot move above the chain
   asm volatile("mov.u64 %0, %%clock64;" : "=l"(c1) : "f"(y));
@@ -153,30 +194,64 @@ __global__ void __launch_bounds__(1)
   *ns = t1 - t0;
 }
 
+template <int kComps, class Step>
+void launch(const float* u, const float* state, float* out, long long rows, long long n,
+            Step step, cudaStream_t stream) {
+  first_order_iir_kernel<kComps><<<dim3(static_cast<unsigned>(rows)), kWarp, 0, stream>>>(
+      u, state, out, n, step);
+}
+
+template <class Step>
+void launch_rows(const float* u, const float* state, float* out, long long rows, long long n,
+                 int comps, Step step, cudaStream_t stream) {
+  if (comps == 1) {
+    launch<1>(u, state, out, rows, n, step, stream);
+  } else {
+    launch<2>(u, state, out, rows, n, step, stream);
+  }
+}
+
 }  // namespace
 
-// The chain probe: y_out, cycles, ns are one device value each.
-extern "C" int r4w_first_order_iir_chain_probe(long long steps, float b, float u0, float u1,
-                                               float* y_out, long long* cycles,
-                                               unsigned long long* ns, cudaStream_t stream) {
+// The chain probe of step kind `kind` (0-4, as above) with coefficients
+// c0, c1: y_out, cycles, ns are one device value each.
+extern "C" int r4w_first_order_iir_chain_probe(long long steps, int kind, float c0, float c1,
+                                               float u0, float u1, float* y_out,
+                                               long long* cycles, unsigned long long* ns,
+                                               cudaStream_t stream) {
   if (steps < 0 || steps % kUnroll != 0) return cudaErrorInvalidValue;
-  first_order_iir_chain_probe<<<1, 1, 0, stream>>>(steps, b, u0, u1, y_out, cycles, ns);
+  switch (kind) {
+    case 0: first_order_iir_chain_probe<<<1, 1, 0, stream>>>(steps, Linear{c0}, u0, u1, y_out,
+                                                             cycles, ns); break;
+    case 1: first_order_iir_chain_probe<<<1, 1, 0, stream>>>(steps, OnePole{c0, c1}, u0, u1,
+                                                             y_out, cycles, ns); break;
+    case 2: first_order_iir_chain_probe<<<1, 1, 0, stream>>>(steps, Ema{c0}, u0, u1, y_out,
+                                                             cycles, ns); break;
+    case 3: first_order_iir_chain_probe<<<1, 1, 0, stream>>>(steps, AttackRelease{c0, c1}, u0,
+                                                             u1, y_out, cycles, ns); break;
+    case 4: first_order_iir_chain_probe<<<1, 1, 0, stream>>>(steps, PeakHold{c0}, u0, u1, y_out,
+                                                             cycles, ns); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 // u, out: rows * n * comps float32 (complex64 rows viewed as float pairs);
-// state: rows * comps float32, or null for zeros. comps is 1 or 2.
+// state: rows * comps float32, or null for zeros. comps is 1 or 2; kind is
+// 0-4 (as above), with coefficients c0, c1.
 extern "C" int r4w_first_order_iir(const float* u, const float* state, float* out,
-                                   long long rows, long long n, int comps, float b,
-                                   cudaStream_t stream) {
+                                   long long rows, long long n, int comps, int kind, float c0,
+                                   float c1, cudaStream_t stream) {
   if (rows < 0 || n < 0 || (comps != 1 && comps != 2)) return cudaErrorInvalidValue;
+  if (kind < 0 || kind > 4) return cudaErrorInvalidValue;
   if (rows == 0 || n == 0) return cudaSuccess;
   if (rows > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>(rows));
-  if (comps == 1) {
-    first_order_iir_kernel<1><<<grid, kWarp, 0, stream>>>(u, state, out, n, b);
-  } else {
-    first_order_iir_kernel<2><<<grid, kWarp, 0, stream>>>(u, state, out, n, b);
+  switch (kind) {
+    case 0: launch_rows(u, state, out, rows, n, comps, Linear{c0}, stream); break;
+    case 1: launch_rows(u, state, out, rows, n, comps, OnePole{c0, c1}, stream); break;
+    case 2: launch_rows(u, state, out, rows, n, comps, Ema{c0}, stream); break;
+    case 3: launch_rows(u, state, out, rows, n, comps, AttackRelease{c0, c1}, stream); break;
+    default: launch_rows(u, state, out, rows, n, comps, PeakHold{c0}, stream); break;
   }
   return cudaGetLastError();
 }

@@ -57,8 +57,13 @@ on a spectral null; at the reference's 1,024 bits, or at a 1,500-byte
 packet's 12,000. `fm_broadcast_gate(device)` receives one minute of a
 stereo station with RDS through the reference's broadcast chain, and
 `modem_family_gate(device)` runs the modem family card against CPU; both
-live in `modem_gates` and are re-exported here. Every entry point runs on
-the CUDA card unless the caller names another device.
+live in `modem_gates` and are re-exported here. `spectrum_monitor_gate(device,
+rows)` watches one second of a 30.72 MS/s capture for four bursty FM
+emitters (spectrum sensing, four down-converters, burst gate, squelch,
+envelope and peak hold), and `dsp_blocks_gate(device)` runs the stream and
+detection blocks card against CPU; both live in `monitor_gates` and are
+re-exported here. Every entry point runs on the CUDA card unless the caller
+names another device.
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ from r4w_tpu_torch.gnss import acquisition, dual_pvt as dual, galileo_pvt as gal
 from r4w_tpu_torch.gnss import glonass_track as glo, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.kernels import viterbi
 from r4w_tpu_torch.modem_gates import fm_broadcast_gate, modem_family_gate  # noqa: F401
+from r4w_tpu_torch.monitor_gates import dsp_blocks_gate, spectrum_monitor_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

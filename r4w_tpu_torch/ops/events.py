@@ -8,6 +8,12 @@ state a tensor on the mask's device (no host read inside the loop).
 `masked_indices` ranks the True entries by a cumulative sum and scatters
 their positions into a buffer of the requested size, so it never asks the
 host how many there are (`torch.nonzero` would).
+
+`latest_set` is the parallel form of a state machine in which the last
+decisive step wins (a hysteresis comparator, a burst gate, a run counter):
+the state at step t is the value set by the latest step at or before t
+that sets one, found by a cumulative max of that step's index. It rounds
+nothing, so it equals the step loop exactly.
 """
 
 from __future__ import annotations
@@ -19,6 +25,17 @@ from r4w_tpu_torch.core.types import to_tensor
 
 def _mask(mask) -> torch.Tensor:
     return to_tensor(mask).to(torch.bool)
+
+
+def latest_set(sets: torch.Tensor, value: torch.Tensor, initial=0):
+    """(state, last) along the last axis: `state[..., t]` is `value` at the
+    latest step s <= t where `sets` is True, or `initial` where there is
+    none; `last[..., t]` is that s, or -1."""
+    steps = torch.arange(sets.shape[-1], device=sets.device)
+    last = torch.cummax(torch.where(sets, steps, -1), dim=-1).values
+    held = torch.gather(value, -1, last.clamp(min=0))
+    return torch.where(last >= 0, held, torch.as_tensor(initial, dtype=value.dtype,
+                                                        device=value.device)), last
 
 
 def refractory_trigger(mask, refractory: int) -> torch.Tensor:

@@ -21,13 +21,14 @@ convolution, and so no cuDNN TF32, is on the path. The oscillator of
 The design functions are numpy copies of the reference's and return the
 same float32 (or float64) arrays bit for bit.
 
-The one-pole filters (`single_pole_iir`, `dc_blocker`) compute their
-input term for the whole block (α·x, or x[n] − x[n-1]) and run the linear
-first-order recursion y[n] = u[n] + b·y[n-1] through
+The one-pole filters (`single_pole_iir`, `dc_blocker`) run through
 `kernels.recurrence.first_order_recurrence_dispatch`: the plain step loop
-on a CPU tensor, one launch of the Hopper kernel on a CUDA tensor, the
-product and the sum each rounded as the loop rounds them, with the carried
-state a tensor on the samples' device. `iir_filter` of general order stays
+on a CPU tensor, one launch of the Hopper kernel on a CUDA tensor, with the
+carried state a tensor on the samples' device. Each step rounds as the
+reference's compiled scan, which fuses a multiply and an add:
+`single_pole_iir` is fma(α, x[n], round((1−α)·y)) (kind ``one_pole``) and
+`dc_blocker` fma(α, y, x[n] − x[n-1]) (kind ``linear``, the difference
+computed for the whole block first). `iir_filter` of general order stays
 a step loop over the samples, as the reference's ``lax.scan`` is: each
 step's input products are computed for the whole block first (the same
 float32 products the reference's step makes), so a step is the few
@@ -188,7 +189,7 @@ def _median(v: torch.Tensor) -> torch.Tensor:
 def single_pole_iir(alpha: float, x, state=None):
     """y[n] = α·x[n] + (1-α)·y[n-1] (single_pole_iir.rs)."""
     x = _signal(x)
-    y = first_order_recurrence_dispatch(alpha * x, 1.0 - alpha, state)
+    y = first_order_recurrence_dispatch(x, "one_pole", alpha, 1.0 - alpha, state)
     if x.shape[-1] == 0:
         return y, initial_state(x, state)
     return y, y[..., -1]
@@ -206,7 +207,7 @@ def dc_blocker(x, alpha: float = 0.995, state=None):
     if x.shape[-1] == 0:
         return x.new_zeros(x.shape), (xprev, initial_state(x, yprev))
     diff = x - torch.cat([xprev[..., None].expand(x.shape[:-1] + (1,)), x[..., :-1]], dim=-1)
-    y = first_order_recurrence_dispatch(diff, alpha, yprev)
+    y = first_order_recurrence_dispatch(diff, "linear", alpha, state=yprev)
     return y, (x[..., -1], y[..., -1])
 
 

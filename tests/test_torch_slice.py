@@ -218,7 +218,9 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.ops.equalizers, r4w_tpu_torch.ops.agc, r4w_tpu_torch.core.hostio\n"
             "import r4w_tpu_torch.ops.events, r4w_tpu_torch.ops.mapping, r4w_tpu_torch.ops.scramblers\n"
             "import r4w_tpu_torch.ops.exotic_modems, r4w_tpu_torch.kernels.recurrence\n"
-            "import r4w_tpu_torch.modem_gates\n"
+            "import r4w_tpu_torch.modem_gates, r4w_tpu_torch.monitor_gates\n"
+            "import r4w_tpu_torch.ops.stream_blocks, r4w_tpu_torch.ops.detect\n"
+            "import r4w_tpu_torch.ops.adaptive, r4w_tpu_torch.ops.kalman\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"

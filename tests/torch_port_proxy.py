@@ -10,6 +10,12 @@ them with 64-bit types off (float64 → float32, int64 → int32, complex128 →
 complex64), and returns tensors as numpy arrays, inside tuples, named
 tuples, lists and dicts too, so that the reference test's own assertions
 read the port's outputs unchanged.
+
+`check_parity(port_fn, ref_fn, args, kwargs, tol)` calls a port function
+with numpy inputs as CPU tensors and the reference's with the same inputs
+as JAX arrays, and compares every array of the two results in order:
+integer and boolean arrays equal, float and complex arrays within `tol` of
+the largest reference magnitude (0: bit for bit).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import importlib
 import inspect
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -82,3 +89,55 @@ def run_reference_test(monkeypatch, module: str, name: str, **swaps: str) -> Non
     owner, _, method = name.partition(".")
     fn = getattr(getattr(ref, owner)(), method) if method else getattr(ref, owner)
     fn()
+
+
+def _flat(value) -> list:
+    if isinstance(value, torch.Tensor):
+        return [value.detach().cpu().numpy()]
+    if isinstance(value, (jax.Array, np.ndarray, np.generic, bool, int, float, complex)):
+        return [np.asarray(value)]
+    if isinstance(value, (tuple, list)):
+        return [a for v in value for a in _flat(v)]
+    return []
+
+
+def _to_jax(value):
+    if isinstance(value, np.ndarray):
+        return jnp.asarray(value)
+    if isinstance(value, (tuple, list)) and value and isinstance(value[0], np.ndarray):
+        return type(value)(_to_jax(v) for v in value)
+    return value
+
+
+def _to_torch(value):
+    if isinstance(value, (tuple, list)) and value and isinstance(value[0], np.ndarray):
+        return type(value)(_to_torch(v) for v in value)
+    return to_port(value)
+
+
+def compare(got, want, tol: float, label: str = "") -> float:
+    """The worst relative difference of `got` from `want`; asserts the
+    integer arrays equal and the float arrays within `tol`."""
+    got, want = _flat(got), _flat(want)
+    assert len(got) == len(want), (label, len(got), len(want))
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, (label, i, g.shape, w.shape)
+        if w.dtype.kind in "biu":
+            np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64),
+                                          err_msg=f"{label}[{i}]")
+            continue
+        if not w.size:
+            continue
+        scale = float(np.max(np.abs(w))) or 1.0
+        err = float(np.max(np.abs(g.astype(np.complex128) - w.astype(np.complex128)))) / scale
+        assert err <= tol, (label, i, err, tol)
+        worst = max(worst, err)
+    return worst
+
+
+def check_parity(port_fn, ref_fn, args=(), kwargs=None, tol: float = 1e-5, label: str = ""):
+    kwargs = kwargs or {}
+    got = port_fn(*[_to_torch(a) for a in args], **kwargs)
+    want = ref_fn(*[_to_jax(a) for a in args], **kwargs)
+    return compare(got, want, tol, label)
