@@ -60,7 +60,9 @@ same threefry draws and runs ``channel_bench()`` (AWGN at 20 dB, 16,384
 times over 2^18 samples) in Msamples/s; phase 33 ``fading_gate()`` (OFDM
 through TDL EPA and EVA, LoRa-SF7, DSSS and BFSK through EPA, on the
 reference's draws: every payload back; the dechirp kernel launched by the
-LoRa case), then its pass rates under fresh Philox draws; phase 34
+LoRa case; QPSK through a static 2-ray channel with the LS estimate and
+the frequency-domain equaliser), then its pass rates under fresh Philox
+draws; phase 34
 ``coded_link_gate()`` (the JAX FEC tests' inputs: LDPC, turbo, polar,
 convolutional, TCM at 100,000 bits, DVB-S2X short frames, LT, MAP: every
 bar, decisions equal to the CPU's, each Viterbi kernel launched twice,
@@ -112,7 +114,25 @@ warm chain and times the NCO and FIR kernels at the monitor's shapes;
 phase 44 holds each recursion kind bit for bit against its plain version
 at (4, 2^20), (1, 2^15), complex (8, 4096) and, for the two linear forms,
 (1, 14.4 M), and times each beside its bare chain, its bytes bound and
-its plain loop. Each phase prints at least one line; a failed phase raises,
+its plain loop. Then radar, arrays and propagation: phase 45 runs
+``array_blocks_gate()`` (every function of core.linalg, radar,
+radar_sonar, radar_adv, beamforming, mimo, propagation and ew on its JAX
+test's inputs, card against CPU, the SVD and eigenvectors by their
+phase-free invariants; ``cfar_1d``'s window sums launch the FIR kernel)
+and times the FIR at that window (64 rows of 4096 cells, K = 21) beside
+its plain version, conv1d and its bound; phase 46 runs
+``array_radar_gate()``, a 16-element digital-array pulse-Doppler radar at
+a full CPI (16 × 128 × 4096) over 5 CPIs with the counts set to 0 just
+before it and read just after (every bar: each target at its planted bins
+in every CPI and strongest in the beam nearest its sine, at most 25 false
+detections a CPI, MVDR at least 15 dB under the conventional beam away
+from the jammer, five confirmed tracks within 7.5 m from the second CPI;
+no hand-written kernel launched), holds the last CPI's card run against a
+CPU run (CFAR masks equal but at counted ties, clusters equal, weights,
+maps and MUSIC angles within tolerance) and profiles one warm CPI; phase
+47 the static 2-ray case of phase 33's fading gate (QPSK through a 2-ray
+channel, the LS estimate and the frequency-domain equaliser: every byte
+back) on the card against a CPU run. Each phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -151,7 +171,9 @@ from r4w_tpu_torch.entry import (DDC_CENTER_HZ, DDC_DECIMATION, DDC_RATE_HZ, DDC
                                  noisy_pass_rates, packet_capture, pcps_bench, pcps_gcorr_bench,
                                  pcps_inputs, sincgars_data_roundtrip, sweep_lanes, sweep_round,
                                  TCM_GATE_BITS, viterbi_bench, composed_receiver_gate,
-                                 PACKET_INFO_BITS, QPSK_POINTS, RECEIVER_INFO_BITS, RECEIVER_SPS)
+                                 PACKET_INFO_BITS, QPSK_POINTS, RECEIVER_INFO_BITS, RECEIVER_SPS,
+                                 TWO_RAY_LABEL, array_blocks_gate, array_radar_gate,
+                                 two_ray_fde_case)
 from r4w_tpu_torch.fec import convolutional, crc, dvb_s2x, ldpc, tcm, turbo
 from r4w_tpu_torch.gnss import acquisition, inav, scenario, tracking
 from r4w_tpu_torch.gnss import dual_pvt as dual
@@ -179,6 +201,7 @@ from r4w_tpu_torch.monitor_gates import (MONITOR_BLOCK, MONITOR_DECIMATION, MONI
                                          monitor_agreement, spectrum_monitor_chain,
                                          spectrum_monitor_gate)
 from r4w_tpu_torch.profiling import breakdown
+from r4w_tpu_torch import radar_gates
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
@@ -298,6 +321,9 @@ SLICE_CUMSUM_TOL = 2e-5    # differences of float32 cumulative sums (Schmidl-Cox
 SLICE_LOOP_TOL = 1e-4      # the recursions, tests/test_torch_resample_sync.py's LOOP_TOL
 SLICE_RLS_TOL = 5e-5       # RLS, tests/test_torch_equalizers_agc.py's RLS_TOL
 LOOP_PROFILE_STEPS = (64, 192)  # a recursion's launches a step: the slope between these
+# max|card - CPU| / max|CPU| of the 2-ray LS estimate: float32 normal equations of an
+# oversampled burst (condition ~10^4), whose products sum in another order on the card
+TWO_RAY_ESTIMATE_TOL = 1e-3
 FIXED_STEP_LOOPS = {"sync2.delay_lock_loop"}  # 64 steps whatever the input
 RECURSION_KERNEL_LOOPS = {"filters.single_pole_iir", "filters.dc_blocker"}  # one launch a call
 RECEIVER_FIR_LAUNCHES = 2  # the gate's shaping filter and matched filter
@@ -317,8 +343,12 @@ RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:24
                         "r4w_tpu/ops/stream_blocks.py:206", "r4w_tpu/ops/adaptive.py:159"]
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(name: str, message: str) -> None:
-    print(f"[{name}] {message}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{name}] ({time.perf_counter() - _STARTED:.1f} s) {message}", flush=True)
 
 
 def cuda_ms(fn, iters: int = TIMED_LAUNCHES) -> float:
@@ -2029,7 +2059,8 @@ def drive_fading_gate(dev: torch.device) -> dict:
           + f" (every payload back); launches {json.dumps(counts)}; phase {secs:.3f} s")
     phase("33 pass rates", "share of 20 Philox draws decoding each case (not a gate): "
           + json.dumps(gate["pass_rates"]))
-    return {"launches": counts, "seconds": secs, "pass_rates": gate["pass_rates"]}
+    return {"launches": counts, "seconds": secs, "pass_rates": gate["pass_rates"],
+            "results": gate["results"]}
 
 
 def decode_costs(dev: torch.device) -> dict:
@@ -3032,6 +3063,140 @@ def check_recursion_kinds(dev: torch.device) -> dict:
     return table
 
 
+def time_cfar_fir(dev: torch.device) -> dict:
+    """`radar.cfar_1d`'s window sums at the blocks gate's CFAR window, 64
+    rows of 4096 cells edge-padded by 10 (K = 21 taps, f = 1, float32):
+    the FIR kernel against its plain version, timed in turns beside cuDNN's
+    conv1d (TF32 off) and its bound."""
+    rows, cells = radar_gates.CFAR_WINDOW
+    guard, train = 2, 8
+    win = guard + train
+    k = 2 * win + 1
+    taps = np.zeros(k, np.float32)
+    taps[:train] = 1.0
+    taps[-train:] = 1.0
+    gen = torch.Generator(device=dev).manual_seed(45)
+    x = torch.empty((rows, cells + 2 * win), device=dev).exponential_(generator=gen)
+    rev = torch.from_numpy(taps).to(dev).flip(0)
+    got = fir.fir_decimate_cuda(x, rev, 1, zero_state=True)
+    abs_err, rel = rel_err(got, fir.fir_decimate(x, rev, 1, zero_state=True))
+    if not rel < FIR_REL_TOL:
+        raise AssertionError(f"fir_decimate at the CFAR window: {rel:.3g}")
+    kern, plain = in_turns(lambda: fir.fir_decimate(x, rev, 1, zero_state=True),
+                           lambda: fir.fir_decimate_cuda(x, rev, 1, zero_state=True))
+    padded = F.pad(x, (k - 1, 0))[:, None, :]
+    weight = rev.view(1, 1, -1)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_out = F.conv1d(padded, weight)[:, 0]
+        library = cuda_ms(lambda: F.conv1d(padded, weight))
+    _, lib_rel = rel_err(lib_out, got)
+    if not lib_rel < FIR_REL_TOL:
+        raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
+    n = x.shape[1]
+    b_ms, b_by = bound(4 * rows * n + 4 * k + 4 * rows * n, 2 * rows * n * k)
+    phase("45 cfar fir", f"fir_decimate float32 ({rows}, {n}) K={k} f=1 (cfar_1d's window sums) "
+          f"from zero state: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/"
+          f"{plain[1]:.4f} ms, conv1d (cuDNN, FP32, max|Δ|/max|y| {lib_rel:.3g}) {library:.4f} ms; "
+          f"bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|ref| {rel:.3g}")
+    return {"ms_cfar": sum(kern) / 2, "plain_ms_cfar": sum(plain) / 2, "library_ms_cfar": library,
+            "bound_ms_cfar": b_ms, "bound_by_cfar": b_by, "max_abs_err_cfar": abs_err,
+            "shape_cfar": [rows, n, k, 1]}
+
+
+def drive_array_blocks_gate(dev: torch.device) -> dict:
+    """Phase 45: `array_blocks_gate()` on the card with the counts set to 0
+    just before it and read just after: every function of core.linalg,
+    radar, radar_sonar, radar_adv, beamforming, mimo, propagation and ew on
+    its JAX test's inputs, card against CPU (decisions equal, floats within
+    the stated tolerances), `cfar_1d`'s window sums on the FIR kernel; then
+    the FIR kernel timed at that window."""
+    zero_launch_counts()
+    gate = array_blocks_gate(dev)
+    counts = fm_counts()
+    if not gate["ok"] or counts["fir_decimate"] <= 0:
+        raise AssertionError(f"array blocks gate: failed "
+                             f"{ {k: gate['worst'][k] for k in gate['failed']} }, launches {counts}")
+    top = sorted(gate["worst"].items(), key=lambda kv: -kv[1])[:5]
+    phase("45 array blocks gate", f"{len(gate['worst'])} cases card = CPU on {dev} (decisions "
+          f"equal, floats within their tolerances); largest "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top) + f"; launches {json.dumps(counts)}")
+    return {"launches": counts, "timing": time_cfar_fir(dev)}
+
+
+def drive_radar_gate(dev: torch.device) -> dict:
+    """Phase 46: `array_radar_gate()` at its full CPI (16 × 128 × 4096) over
+    5 CPIs with the counts set to 0 just before it and read just after:
+    every bar met, no hand-written kernel launched (the path is cuFFT, one
+    matrix product, one convolution and small solves). Then the last CPI's
+    cube on the card against a CPU run (`radar_agreement`), and one warm CPI
+    on the card-resident cube under the profiler."""
+    zero_launch_counts()
+    gate = array_radar_gate(dev, radar_gates.CPIS)
+    counts = fm_counts()
+    b = gate["bars"]
+    phase("46 radar gate", f"{radar_gates.CPIS} CPIs of {tuple(gate['shape'])} on {dev}: detected "
+          f"{b['detected']}, beams {b['beams']}, false detections a CPI "
+          f"{[c['false_detections'] for c in gate['cpis']]} (max {b['false_detections_max']}, bar "
+          f"{radar_gates.FALSE_DETECTIONS_MAX}), clusters {[c['clusters'] for c in gate['cpis']]}; "
+          f"MVDR under conventional {b['mvdr_worst_db']:.3f} dB worst away from the jammer (bar "
+          f"{radar_gates.MVDR_REDUCTION_DB}); tracks {json.dumps(b['tracks'])}; launches "
+          f"{json.dumps(counts)}")
+    for k, c in enumerate(gate["cpis"]):
+        phase("46 radar cpi", f"CPI {k}: beams {c['beam']}, MUSIC deg {c['music_deg']} (error "
+              f"against truth {c['music_err_deg']}, information); stage ms "
+              + json.dumps({n: round(v, 4) for n, v in gate["stage_ms"][k].items()})
+              + f"; {gate['seconds'][k]:.4f} s end to end")
+    if not gate["ok"] or any(counts.values()):
+        raise AssertionError(f"radar gate: bars {b}, launches {counts}")
+    last = gate["last"]
+    card = radar_gates.cpi_on(dev, last["cube_host"], gate["listen_host"])
+    cpu = radar_gates.cpi_on("cpu", last["cube_host"], gate["listen_host"])
+    agreement = radar_gates.radar_agreement(card, cpu)
+    phase("46 radar card vs cpu", f"CPI {radar_gates.CPIS - 1}: " + json.dumps(agreement))
+    if not agreement["ok"]:
+        raise AssertionError(f"radar gate: card against CPU {agreement}")
+    del card, cpu
+    cube, listen, replica = last["cube"], gate["listen"], gate["replica"]
+    tracker = radar_gates.radar_adv.RadarTracker(dt=cube.shape[1] / radar_gates.PRF_HZ,
+                                                 device=dev)
+    prof = breakdown(lambda: radar_gates.radar_cpi(cube, listen, replica, tracker,
+                                                   radar_gates._Stages(dev)))
+    phase("46 radar profile", f"one warm CPI on the card-resident cube under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    return {"launches": counts, "stage_ms": gate["stage_ms"], "seconds": gate["seconds"],
+            "bars": b, "card_vs_cpu": agreement, "profile": prof}
+
+
+def drive_two_ray_case(dev: torch.device, fading_run: dict) -> dict:
+    """Phase 47: the static 2-ray case of `fading_gate()` (QPSK behind a
+    known preamble through a 2-ray channel on the reference's key-9 draws,
+    the LS estimate on the preamble, the frequency-domain equaliser at
+    n_fft 4096): every byte back in phase 33's gate, its Philox pass rate;
+    then the case on the card against a CPU run (the same taps, the
+    estimate within TWO_RAY_ESTIMATE_TOL, the same bytes), with the counts set to 0 just
+    before the card run and read just after."""
+    gated = fading_run["results"][TWO_RAY_LABEL]
+    zero_launch_counts()
+    card = two_ray_fde_case(dev)
+    counts = fm_counts()
+    cpu = two_ray_fde_case("cpu")
+    _, est_rel = rel_err(torch.from_numpy(card["estimate"]), torch.from_numpy(cpu["estimate"]))
+    same_taps = [d for d, _ in card["taps"]] == [d for d, _ in cpu["taps"]]
+    if not (gated["ok"] and card["ok"] and card["bytes"] == cpu["bytes"] and same_taps
+            and est_rel < TWO_RAY_ESTIMATE_TOL):
+        raise AssertionError(f"2-ray case: gate {gated}, card {card['bytes']} taps {card['taps']}, "
+                             f"cpu {cpu['bytes']} taps {cpu['taps']}, estimate {est_rel:.3g}")
+    phase("47 two-ray fde", f"{TWO_RAY_LABEL} on {dev}: bytes {card['bytes']} (every byte back, "
+          f"in phase 33's fading gate too; Philox pass rate "
+          f"{fading_run['pass_rates'][TWO_RAY_LABEL]}); taps "
+          + ", ".join(f"{d}: {abs(g):.4f}" for d, g in card["taps"])
+          + f"; card = CPU (taps, bytes; estimate within {est_rel:.3g}); launches "
+          + json.dumps(counts))
+    return {"launches": counts}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3299,6 +3464,14 @@ def main() -> None:
     monitor_run = drive_spectrum_monitor(dev)
     kind_timing = check_recursion_kinds(dev)
 
+    # Radar, arrays and propagation: every block card against CPU (the FIR
+    # kernel under cfar_1d), then the digital-array pulse-Doppler radar at a
+    # full CPI with the counts set to 0 just before it and read just after
+    # (no hand-written kernel on its path), then the static 2-ray case.
+    blocks_run = drive_array_blocks_gate(dev)
+    radar_run = drive_radar_gate(dev)
+    drive_two_ray_case(dev, fading_run)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -3325,6 +3498,7 @@ def main() -> None:
         "launches_fleet_sweep": sweep_run["launches"]["dechirp_power"],
         "launches_noisy_gate": gate_run["launches"]["dechirp_power"],
         "launches_fading_gate": fading_run["launches"]["dechirp_power"],
+        "launches_radar_gate": radar_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -3348,6 +3522,7 @@ def main() -> None:
             "launches_receiver_gate": receiver_run["packet"]["launches"][name],
             **receiver_timing[name],
             **packet_timing[name],
+            "launches_radar_gate": radar_run["launches"][name],
             "library_ms": None,
             "library_ms_receiver": None,
             "library_ms_packet": None,
@@ -3366,6 +3541,9 @@ def main() -> None:
         **fm_timing["fir_decimate"],
         "launches_monitor_gate": monitor_run["launches"]["fir_decimate"],
         **monitor_run["timing"]["fir_decimate"],
+        "launches_array_blocks_gate": blocks_run["launches"]["fir_decimate"],
+        **blocks_run["timing"],
+        "launches_radar_gate": radar_run["launches"]["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -3377,6 +3555,7 @@ def main() -> None:
         "library_ms": None,
         "launches_monitor_gate": monitor_run["launches"]["nco_mix"],
         **monitor_run["timing"]["nco_mix"],
+        "launches_radar_gate": radar_run["launches"]["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
@@ -3390,6 +3569,7 @@ def main() -> None:
         "launches_monitor_gate": monitor_run["launches"]["first_order_iir"],
         "launches_monitor_by_kind": monitor_run["by_kind"],
         "kinds": kind_timing,
+        "launches_radar_gate": radar_run["launches"]["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ the port. `channel_config_from_reference` reads a reference
 `ChannelConfig` by its fields; `ldpc_code_from_reference` and
 `dvb_s2x_structure_from_reference` take the reference's code structures
 (the ``make_regular_ldpc`` tuple, a ``parity_structure`` dict) onto a
-device with the decoders' layouts.
+device with the decoders' layouts. `tle_from_reference`,
+`modcod_from_reference` (and `modcod_table_from_reference` for
+`AdaptiveModcod`'s ladder) and `radar_track_from_reference` read the
+radar and link slice's dataclasses by their fields, so that a test builds
+the port's from the reference's.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from r4w_tpu_torch.channel.channel import ChannelConfig
 from r4w_tpu_torch.core.types import DEFAULT_DEVICE, IQ_DTYPE, REAL_DTYPE
 from r4w_tpu_torch.fec import convolutional, dvb_s2x, ldpc
 from r4w_tpu_torch.kernels import dechirp, viterbi
-from r4w_tpu_torch.ops import coding
+from r4w_tpu_torch.ops import coding, mimo, propagation, radar_adv
 from r4w_tpu_torch.waveforms.lora import chirp
 from r4w_tpu_torch.waveforms.lora.params import LoRaParams
 
@@ -113,3 +117,30 @@ def dvb_s2x_structure_from_reference(st: dict, device=DEFAULT_DEVICE) -> dvb_s2x
     the information columns' rows and columns, and the decoder's layout."""
     return dvb_s2x.structure_on({key: np.array(v) for key, v in st.items()},
                                 torch.device(device))
+
+
+def _fields(cls, obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def tle_from_reference(tle) -> propagation.Tle:
+    """An ``r4w_tpu`` `propagation.Tle` (or anything with its fields) -> the port's."""
+    return propagation.Tle(**_fields(propagation.Tle, tle))
+
+
+def modcod_from_reference(mc) -> mimo.ModCod:
+    """An ``r4w_tpu`` `mimo.ModCod` -> the port's."""
+    return mimo.ModCod(**_fields(mimo.ModCod, mc))
+
+
+def modcod_table_from_reference(table) -> tuple:
+    """A ladder of reference `ModCod`s (``DEFAULT_MODCOD_TABLE``, an
+    `AdaptiveModcod`'s ``table``) -> the port's, for its `AdaptiveModcod`."""
+    return tuple(modcod_from_reference(mc) for mc in table)
+
+
+def radar_track_from_reference(track) -> radar_adv.RadarTrack:
+    """An ``r4w_tpu`` `radar_adv.RadarTrack` -> the port's (numpy state, copied)."""
+    fields = _fields(radar_adv.RadarTrack, track)
+    fields["x"], fields["cov"] = np.array(track.x), np.array(track.cov)
+    return radar_adv.RadarTrack(**fields)

@@ -41,8 +41,10 @@ the air through AWGN and back, its frames decoded as lanes of one Viterbi
 call. `channel_bench(device)` is the counterpart of ``bench.py``'s
 ``bench_channel`` (its threefry half): AWGN at 20 dB applied 16,384 times
 to 2^18 samples, in samples per second. `fading_gate(device)` puts OFDM,
-LoRa-SF7, DSSS and BFSK through the TDL fading channels on the
-reference's own threefry draws, as the JAX package's fading tests do.
+LoRa-SF7, DSSS and BFSK through the TDL fading channels, and QPSK through a
+static 2-ray channel with the LS channel estimate and the frequency-domain
+equaliser (`two_ray_fde_case`), on the reference's own threefry draws, as
+the JAX package's fading tests do.
 `coded_link_gate(device)` runs the JAX FEC tests' own inputs (LDPC,
 turbo, polar, convolutional, TCM, DVB-S2X short frames, LT with erasures,
 MAP into a soft chain) through the port's codecs, each to its test's bar.
@@ -62,6 +64,11 @@ rows)` watches one second of a 30.72 MS/s capture for four bursty FM
 emitters (spectrum sensing, four down-converters, burst gate, squelch,
 envelope and peak hold), and `dsp_blocks_gate(device)` runs the stream and
 detection blocks card against CPU; both live in `monitor_gates` and are
+re-exported here. `array_radar_gate(device, cpis)` runs a 16-element
+digital-array pulse-Doppler radar at a full CPI (16 × 128 × 4096):
+jammer-nulling MVDR beams, MTI, matched filter, Doppler, 2-D CFAR, MUSIC
+and the tracker; `array_blocks_gate(device)` runs the radar, array and
+propagation blocks card against CPU; both live in `radar_gates` and are
 re-exported here. Every entry point runs on the CUDA card unless the caller
 names another device.
 """
@@ -88,6 +95,7 @@ from r4w_tpu_torch.gnss import glonass_track as glo, gps_pvt_fix as gps, prn
 from r4w_tpu_torch.kernels import viterbi
 from r4w_tpu_torch.modem_gates import fm_broadcast_gate, modem_family_gate  # noqa: F401
 from r4w_tpu_torch.monitor_gates import dsp_blocks_gate, spectrum_monitor_gate  # noqa: F401
+from r4w_tpu_torch.radar_gates import array_blocks_gate, array_radar_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr
@@ -163,6 +171,14 @@ FADING_CASES = (
     ("DSSS", 1_000_000.0, "tdl_awgn", "EPA", 18.0, 2.0, b"\xa5\x3c", 3),
     ("BFSK", 250_000.0, "tdl_awgn", "EPA", 22.0, 2.0, b"\xa5\x3c", 3),
 )
+# tests/test_fleet_fading.py:36-75: QPSK at 1 MS/s behind a 16-byte known
+# preamble (numpy seed 0) through a static 2-ray channel (a full-symbol echo
+# of 0.9 at 8 samples) and AWGN at 25 dB on key 9; an 8-tap LS estimate on
+# the preamble's first 2,048 samples, its taps over 0.05 equalised in the
+# frequency domain at n_fft 4096
+TWO_RAY_FDE_CASE = ("QPSK", 1_000_000.0, 8, 0.9, 25.0, b"\xa5\x3c" * 4, 9)
+TWO_RAY_LABEL = "QPSK static 2-ray FDE"
+TWO_RAY_PILOT, TWO_RAY_TAPS, TWO_RAY_TAP_MIN, TWO_RAY_NFFT = 2048, 8, 0.05, 4096
 # tests/test_named_blocks.py:44-56: (rate, Eb/N0 dB), short frames, 40 iterations
 DVB_GATE_POINTS = (("1/4", 2.0), ("1/2", 3.0), ("3/4", 4.0), ("9/10", 6.5))
 DVB_GATE_ITERS = 40
@@ -839,21 +855,59 @@ def fading_case(case, device=DEFAULT_DEVICE, generator: torch.Generator | None =
     return {"ok": got == data, "bytes": got.hex()}
 
 
+def two_ray_fde_case(device=DEFAULT_DEVICE, generator: torch.Generator | None = None) -> dict:
+    """`TWO_RAY_FDE_CASE` on `device` (tests/test_fleet_fading.py:36-75): a
+    QPSK burst behind a known preamble through a static 2-ray channel and
+    AWGN (the reference's key-9 draws, or `generator`'s), the channel
+    estimated by `propagation.ls_channel_estimate` on the preamble and
+    equalised by `propagation.sparse_multipath_equalize`. Returns ``ok``
+    (the payload back and the estimate's 2-ray structure: main tap within
+    0.1 of 1, an echo over 0.7), the bytes, the taps and the estimate."""
+    from r4w_tpu_torch.channel import multipath_2ray
+    from r4w_tpu_torch.ops import propagation
+
+    name, rate, delay, amplitude, snr, data, key = TWO_RAY_FDE_CASE
+    device = resolve_device(device)
+    wf = create_waveform(name, rate, device)
+    # the reference's bytes() of an int64 array: each draw then 7 zero bytes
+    preamble = bytes(np.random.default_rng(0).integers(0, 256, 16))
+    tx_pre = wf.modulate(preamble)
+    tx = torch.cat([tx_pre, wf.modulate(data)])
+    rx = multipath_2ray(tx, delay, amplitude)
+    rx = (awgn(rx, snr, generator=generator) if generator is not None
+          else awgn(rx, snr, key=threefry.key(key)))
+    h = propagation.ls_channel_estimate(tx_pre[:TWO_RAY_PILOT], rx[:TWO_RAY_PILOT],
+                                        n_taps=TWO_RAY_TAPS)
+    h_host = h.cpu().numpy()
+    taps = [(i, complex(h_host[i])) for i in range(TWO_RAY_TAPS)
+            if abs(h_host[i]) > TWO_RAY_TAP_MIN]
+    pad = (-rx.shape[0]) % TWO_RAY_NFFT
+    rx_p = torch.cat([rx, torch.zeros(pad, dtype=rx.dtype, device=device)])
+    eq = propagation.sparse_multipath_equalize(rx_p, taps, n_fft=TWO_RAY_NFFT)
+    got = (wf.demodulate(eq[tx_pre.shape[0]:]).bits[: len(data)].cpu().numpy()
+           .astype(np.uint8).tobytes())
+    structure = abs(abs(h_host[0]) - 1.0) < 0.1 and float(np.max(np.abs(h_host[1:]))) > 0.7
+    return {"ok": got == data and structure, "bytes": got.hex(), "taps": taps, "estimate": h_host}
+
+
 def fading_gate(device=DEFAULT_DEVICE, seeds=range(20)) -> dict:
     """OFDM, LoRa-SF7, DSSS and BFSK through TDL fading on `device`
     (`FADING_CASES`: OFDM through ``tdl_awgn`` EPA and ``freq_selective``
     EVA at 1 MS/s, 25 dB, 5 Hz Doppler, key 11; the others through EPA at
-    2 Hz, key 3), each on the reference's own draws for its key: the
-    payload must come back. Then, as information and not a gate, the share
-    of fresh Philox draws (``torch.Generator(device).manual_seed(s)`` for
-    `seeds`) on which each case decodes. Returns ``ok``, per-case
-    ``results`` and ``pass_rates``, keyed "name model"."""
+    2 Hz, key 3), and QPSK through a static 2-ray channel with the LS
+    estimate and the frequency-domain equaliser (`two_ray_fde_case`), each
+    on the reference's own draws for its key: the payload must come back.
+    Then, as information and not a gate, the share of fresh Philox draws
+    (``torch.Generator(device).manual_seed(s)`` for `seeds`) on which each
+    case decodes. Returns ``ok``, per-case ``results`` and ``pass_rates``,
+    keyed "name model" (`TWO_RAY_LABEL` for the 2-ray case)."""
     device = resolve_device(device)
+    runs = [(f"{case[0]} {case[2]} {case[3]}", functools.partial(fading_case, case))
+            for case in FADING_CASES] + [(TWO_RAY_LABEL, two_ray_fde_case)]
     results, rates = {}, {}
-    for case in FADING_CASES:
-        label = f"{case[0]} {case[2]} {case[3]}"
-        results[label] = fading_case(case, device)
-        passed = sum(fading_case(case, device, torch.Generator(device=device).manual_seed(s))["ok"]
+    for label, run in runs:
+        results[label] = run(device)
+        passed = sum(run(device, torch.Generator(device=device).manual_seed(s))["ok"]
                      for s in seeds)
         rates[label] = passed / len(seeds)
     return {"ok": all(r["ok"] for r in results.values()), "results": results,

@@ -260,8 +260,9 @@ def _flat(value) -> list:
 
 def compare(card, cpu) -> float:
     """The worst difference of a card result from the CPU's: inf when an
-    integer or boolean array differs (or a shape), else the largest
-    max|Δ|/max|CPU| of its float arrays (0 with none)."""
+    integer or boolean array differs (or a shape, or where the CPU's float
+    is infinite or NaN), else the largest max|Δ|/max|CPU| over the finite
+    entries of its float arrays (0 with none)."""
     got, want = _flat(card), _flat(cpu)
     if len(got) != len(want):
         return math.inf
@@ -273,6 +274,10 @@ def compare(card, cpu) -> float:
             if not np.array_equal(g, w):
                 return math.inf
             continue
+        finite = np.isfinite(w)
+        if not np.array_equal(g[~finite], w[~finite], equal_nan=True):
+            return math.inf
+        g, w = g[finite], w[finite]
         if not w.size:
             continue
         scale = float(np.max(np.abs(w))) or 1.0

@@ -12,26 +12,38 @@ primitives (`events`), symbol mapping and the composed modems with the
 broadcast FM receivers (`mapping`), the scramblers and the FEC table
 (`scramblers`), the specialty modems (`exotic_modems`), the stream
 blocks (`stream_blocks`), the detectors (`detect`), the adaptive filters
-(`adaptive`) and the Kalman filters (`kalman`). Like the reference's
+(`adaptive`), the Kalman filters (`kalman`), and radar, arrays and
+propagation: `radar`, `radar_sonar`, `radar_adv`, `beamforming`, `mimo`,
+`propagation` and `ew`. Like the reference's
 ``r4w_tpu.ops``, the package imports and exports the modules of its list
 that the port has, and the stream and detection modules (`stream_math`,
 `filters2`, `stream_blocks`, `detect`), which the reference's list leaves
 out; `sync2`, `ofdm`, `events`, `mapping`, `scramblers` and
-`exotic_modems`, also left out of it, import as submodules."""
+`exotic_modems`, also left out of it, import as submodules. Of the radar,
+array and propagation modules the reference's list has `radar` and `ew`;
+the port exports `radar_sonar`, `radar_adv`, `beamforming`, `mimo` and
+`propagation` beside them."""
 
 from r4w_tpu_torch.ops import (
     adaptive,
     agc,
+    beamforming,
     coding,
     detect,
     equalizers,
+    ew,
     filters,
     filters2,
     impairments,
     kalman,
     measure,
+    mimo,
     modem,
+    propagation,
     pulse,
+    radar,
+    radar_adv,
+    radar_sonar,
     resample,
     spreading,
     stream_blocks,
@@ -42,16 +54,23 @@ from r4w_tpu_torch.ops import (
 __all__ = [
     "adaptive",
     "agc",
+    "beamforming",
     "coding",
     "detect",
     "equalizers",
+    "ew",
     "filters",
     "filters2",
     "impairments",
     "kalman",
     "measure",
+    "mimo",
     "modem",
+    "propagation",
     "pulse",
+    "radar",
+    "radar_adv",
+    "radar_sonar",
     "resample",
     "spreading",
     "stream_blocks",

@@ -64,7 +64,7 @@ def test_fading_case_on_the_references_draws(case):
 
 def test_fading_gate_meets_every_bar_on_the_cpu():
     gate = entry.fading_gate(CPU, seeds=range(2))
-    assert gate["ok"] and len(gate["results"]) == len(entry.FADING_CASES)
+    assert gate["ok"] and len(gate["results"]) == len(entry.FADING_CASES) + 1  # + the 2-ray case
     assert set(gate["pass_rates"]) == set(gate["results"])
     assert all(r in (0.0, 0.5, 1.0) for r in gate["pass_rates"].values())
 

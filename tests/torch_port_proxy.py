@@ -1,8 +1,10 @@
 """Run the JAX package's own test functions against the port's modules.
 
-`run_reference_test(monkeypatch, module, name, **swaps)` swaps each of the
-reference test module's module-level names (``sync2``, ``filters``, ...)
-for a `PortModule` over the port's module of that name, puts the port's
+`run_reference_test(monkeypatch, module, name, modules, **swaps)` swaps
+each of the reference test module's module-level names (``sync2``,
+``filters``, ...) for a `PortModule` over the port's module of that name
+(and each entry of `modules`, a module a test imports from by its dotted
+name inside its body, in ``sys.modules``), puts the port's
 default device on the CPU, and calls the test function (``"Class.method"``
 for a test in a class). A `PortModule` calls the port's function with
 JAX arrays and numpy arrays as CPU tensors of the dtype JAX would give
@@ -15,7 +17,8 @@ read the port's outputs unchanged.
 with numpy inputs as CPU tensors and the reference's with the same inputs
 as JAX arrays, and compares every array of the two results in order:
 integer and boolean arrays equal, float and complex arrays within `tol` of
-the largest reference magnitude (0: bit for bit).
+the largest reference magnitude (0: bit for bit), their infinities and NaNs
+in the same places.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import functools
 import importlib
 import inspect
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -73,12 +77,18 @@ class PortModule:
         return call
 
 
-def run_reference_test(monkeypatch, module: str, name: str, **swaps: str) -> None:
+def run_reference_test(monkeypatch, module: str, name: str, modules: dict | None = None,
+                       **swaps: str) -> None:
     """Run test `name` of the reference test module `module` (a file of
     tests/) with each name in `swaps` bound to a PortModule of the port's
-    module at the dotted path it maps to."""
+    module at the dotted path it maps to, and each reference module named in
+    `modules` (``{"r4w_tpu.ops.radar": "r4w_tpu_torch.ops.radar"}``) replaced
+    in ``sys.modules`` for ``from r4w_tpu.ops.radar import cfar_1d`` in a
+    test's body."""
     ref = importlib.import_module(module)
     monkeypatch.setattr(types, "DEFAULT_DEVICE", torch.device("cpu"))
+    for path, port_path in (modules or {}).items():
+        monkeypatch.setitem(sys.modules, path, PortModule(importlib.import_module(port_path)))
     for attr, path in swaps.items():
         proxy = PortModule(importlib.import_module(path))
         if "." in attr:  # a package attribute that a test imports inside its body
@@ -127,6 +137,9 @@ def compare(got, want, tol: float, label: str = "") -> float:
             np.testing.assert_array_equal(g.astype(np.int64), w.astype(np.int64),
                                           err_msg=f"{label}[{i}]")
             continue
+        finite = np.isfinite(w)
+        np.testing.assert_array_equal(g[~finite], w[~finite], err_msg=f"{label}[{i}]")
+        g, w = g[finite], w[finite]
         if not w.size:
             continue
         scale = float(np.max(np.abs(w))) or 1.0
