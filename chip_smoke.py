@@ -132,7 +132,23 @@ CPU run (CFAR masks equal but at counted ties, clusters equal, weights,
 maps and MUSIC angles within tolerance) and profiles one warm CPI; phase
 47 the static 2-ray case of phase 33's fading gate (QPSK through a 2-ray
 channel, the LS estimate and the frequency-domain equaliser: every byte
-back) on the card against a CPU run. Each phase prints at least one line; a failed phase raises,
+back) on the card against a CPU run. Then spectrum analysis, cognitive
+radio, instruments and sensing: phase 48 runs ``sensing_blocks_gate()``
+(every BLOCKS entry of spectral2, cognitive, instruments and sensing and
+both analysis classes on their JAX tests' inputs, card against CPU, the
+worst case by name); phase 49 runs ``spectrum_access_gate()``, a
+dynamic-spectrum-access node's sensing cycle over 32 blocks of 2^20
+samples at 30.72 MS/s (occupancy and duty cycles, the engine, the
+waterfall, the idle channels down-converted by 16 and their cyclic
+features, classification, leases, excision, the transmitter's
+self-check), with the counts set to 0 just before it and read just after
+(every bar; nco_mix one launch and fir_decimate one launch a channel, and
+fir_decimate two for the self-check's shaping and matched filter), holds
+the full-size waterfall stage (2^25 values) and the first 4 blocks' card
+run and the self-check against CPU runs, times
+the cycle warm and profiles it; phase 50 holds the NCO and FIR kernels
+against their plain versions at the gate's DDC shape ((32, 2^20) c64,
+K = 63, f = 16) and times them beside conv1d and their bounds. Each phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -201,7 +217,7 @@ from r4w_tpu_torch.monitor_gates import (MONITOR_BLOCK, MONITOR_DECIMATION, MONI
                                          monitor_agreement, spectrum_monitor_chain,
                                          spectrum_monitor_gate)
 from r4w_tpu_torch.profiling import breakdown
-from r4w_tpu_torch import radar_gates
+from r4w_tpu_torch import cognitive_gates, radar_gates
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
@@ -336,6 +352,7 @@ CLOCK_READ_CALLS = 24      # queued recursion calls at the FM row while nvidia-s
 MONITOR_CARD_ROWS = 2      # phase 43's capture for the card against the CPU
 MONITOR_LAUNCHES = {"nco_mix": 4, "fir_decimate": 4, "first_order_iir": 3}
 CHAIN_PROBE_STEPS = 1 << 24
+ACCESS_SELF_CHECK_FIRS = 2  # the self-check burst's shaping and matched filter
 RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
                         "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
                         "r4w_tpu/ops/filters2.py:454", "r4w_tpu/ops/stream_blocks.py:53",
@@ -2942,54 +2959,56 @@ def drive_spectrum_monitor(dev: torch.device) -> dict:
     phase("43 monitor card vs cpu", f"{MONITOR_CARD_ROWS} blocks: " + json.dumps(agreement))
     run["card_vs_cpu"] = agreement
     del card, cpu
-    run["timing"] = time_monitor_kernels(capture)
+    run["timing"] = time_ddc_kernels(capture, 2.88e6, MONITOR_RATE_HZ, MONITOR_DECIMATION,
+                                     "monitor", "43 monitor")
     return run
 
 
-def time_monitor_kernels(capture: torch.Tensor) -> dict:
-    """nco_mix and fir_decimate at the monitor's shapes, (32, 2^20) c64 and
-    K = 63 with f = 32 from zero state: kernel and plain in turns, cuDNN's
-    conv1d (FP32, two planes, groups=2, stride 32) as the FIR's yardstick,
-    each beside its bound."""
-    freq = 2.88e6
-    base = nco.nco_mix_cuda(capture, -freq, MONITOR_RATE_HZ)
-    _, nco_rel = rel_err(base, nco.nco_mix(capture, -freq, MONITOR_RATE_HZ))
+def time_ddc_kernels(capture: torch.Tensor, freq: float, rate: float, decimation: int, key: str,
+                     label: str) -> dict:
+    """nco_mix and fir_decimate at a DDC's shapes, (rows, n) c64 and K = 63
+    with f = `decimation` from zero state: kernel and plain in turns,
+    cuDNN's conv1d (FP32, two planes, groups=2, stride f) as the FIR's
+    yardstick, each beside its bound; numbers keyed ``*_{key}``."""
+    base = nco.nco_mix_cuda(capture, -freq, rate)
+    _, nco_rel = rel_err(base, nco.nco_mix(capture, -freq, rate))
     if not nco_rel < NCO_REL_TOL:
-        raise AssertionError(f"nco_mix at the monitor's shape: {nco_rel:.3g}")
-    kern, plain = in_turns(lambda: nco.nco_mix(capture, -freq, MONITOR_RATE_HZ),
-                           lambda: nco.nco_mix_cuda(capture, -freq, MONITOR_RATE_HZ))
+        raise AssertionError(f"nco_mix at the {key} shape: {nco_rel:.3g}")
+    kern, plain = in_turns(lambda: nco.nco_mix(capture, -freq, rate),
+                           lambda: nco.nco_mix_cuda(capture, -freq, rate))
     b_ms, b_by = bound(16 * capture.numel(), 0)
-    out = {"nco_mix": {"ms_monitor": sum(kern) / 2, "plain_ms_monitor": sum(plain) / 2,
-                       "bound_ms_monitor": b_ms, "bound_by_monitor": b_by,
-                       "library_ms_monitor": None, "shape_monitor": list(capture.shape)}}
-    phase("43 monitor nco", f"nco_mix at {tuple(capture.shape)}: kernel {kern[0]:.4f}/"
+    out = {"nco_mix": {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
+                       f"bound_ms_{key}": b_ms, f"bound_by_{key}": b_by,
+                       f"library_ms_{key}": None, f"max_rel_err_{key}": nco_rel,
+                       f"shape_{key}": list(capture.shape)}}
+    phase(f"{label} nco", f"nco_mix at {tuple(capture.shape)}: kernel {kern[0]:.4f}/"
           f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms; bound {b_ms:.4f} ms by "
           f"{b_by}; max|Δ|/max|plain| {nco_rel:.3g}")
     rows, n = capture.shape
     taps = torch.from_numpy(filters.design_lowpass(
-        DDC_TAPS, MONITOR_RATE_HZ / (2.5 * MONITOR_DECIMATION), MONITOR_RATE_HZ)).to(capture.device)
+        DDC_TAPS, rate / (2.5 * decimation), rate)).to(capture.device)
     rev = taps.flip(0)
-    got = fir.fir_decimate_cuda(base, rev, MONITOR_DECIMATION, zero_state=True)
-    abs_err, rel = rel_err(got, fir.fir_decimate(base, rev, MONITOR_DECIMATION, zero_state=True))
+    got = fir.fir_decimate_cuda(base, rev, decimation, zero_state=True)
+    abs_err, rel = rel_err(got, fir.fir_decimate(base, rev, decimation, zero_state=True))
     if not rel < FIR_REL_TOL:
-        raise AssertionError(f"fir_decimate at the monitor's shape: {rel:.3g}")
+        raise AssertionError(f"fir_decimate at the {key} shape: {rel:.3g}")
     kern, plain = in_turns(
-        lambda: fir.fir_decimate(base, rev, MONITOR_DECIMATION, zero_state=True),
-        lambda: fir.fir_decimate_cuda(base, rev, MONITOR_DECIMATION, zero_state=True))
+        lambda: fir.fir_decimate(base, rev, decimation, zero_state=True),
+        lambda: fir.fir_decimate_cuda(base, rev, decimation, zero_state=True))
     planes = F.pad(torch.view_as_real(base).permute(0, 2, 1), (DDC_TAPS - 1, 0)).contiguous()
     weight = rev.view(1, 1, -1).repeat(2, 1, 1)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        lib_out = F.conv1d(planes, weight, stride=MONITOR_DECIMATION, groups=2)
-        library = cuda_ms(lambda: F.conv1d(planes, weight, stride=MONITOR_DECIMATION, groups=2))
+        lib_out = F.conv1d(planes, weight, stride=decimation, groups=2)
+        library = cuda_ms(lambda: F.conv1d(planes, weight, stride=decimation, groups=2))
     _, lib_rel = rel_err(torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()), got)
     if not lib_rel < FIR_REL_TOL:
         raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
-    b_ms, b_by = fir_bound(rows, n + DDC_TAPS - 1, DDC_TAPS, MONITOR_DECIMATION)
-    out["fir_decimate"] = {"ms_monitor": sum(kern) / 2, "plain_ms_monitor": sum(plain) / 2,
-                           "library_ms_monitor": library, "bound_ms_monitor": b_ms,
-                           "bound_by_monitor": b_by, "max_abs_err_monitor": abs_err,
-                           "shape_monitor": [rows, n, DDC_TAPS, MONITOR_DECIMATION]}
-    phase("43 monitor fir", f"fir_decimate c64 ({rows}, {n}) K={DDC_TAPS} f={MONITOR_DECIMATION} "
+    b_ms, b_by = fir_bound(rows, n + DDC_TAPS - 1, DDC_TAPS, decimation)
+    out["fir_decimate"] = {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
+                           f"library_ms_{key}": library, f"bound_ms_{key}": b_ms,
+                           f"bound_by_{key}": b_by, f"max_abs_err_{key}": abs_err,
+                           f"shape_{key}": [rows, n, DDC_TAPS, decimation]}
+    phase(f"{label} fir", f"fir_decimate c64 ({rows}, {n}) K={DDC_TAPS} f={decimation} "
           f"from zero state: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/"
           f"{plain[1]:.4f} ms, conv1d (cuDNN, FP32, groups=2, max|Δ|/max|y| {lib_rel:.3g}) "
           f"{library:.4f} ms; bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|ref| {rel:.3g}")
@@ -3195,6 +3214,123 @@ def drive_two_ray_case(dev: torch.device, fading_run: dict) -> dict:
           + f"; card = CPU (taps, bytes; estimate within {est_rel:.3g}); launches "
           + json.dumps(counts))
     return {"launches": counts}
+
+
+def drive_sensing_blocks_gate(dev: torch.device) -> dict:
+    """Phase 48: `sensing_blocks_gate()` on the card with the counts set to 0
+    just before it and read just after: every BLOCKS entry of spectral2,
+    cognitive, instruments and sensing and both analysis classes on their
+    JAX tests' inputs, card against CPU (decisions equal, floats within the
+    stated tolerances), the worst case by name."""
+    zero_launch_counts()
+    gate = cognitive_gates.sensing_blocks_gate(dev)
+    counts = fm_counts()
+    if not gate["ok"]:
+        raise AssertionError(f"sensing blocks gate: failed "
+                             f"{ {k: gate['worst'][k] for k in gate['failed']} }, missing "
+                             f"{gate['missing']}")
+    top = sorted(gate["worst"].items(), key=lambda kv: -kv[1])[:5]
+    phase("48 sensing blocks gate", f"{len(gate['worst'])} cases card = CPU on {dev} (every "
+          f"BLOCKS entry of the four modules and both analysis classes; decisions equal, floats "
+          f"within their tolerances); worst {gate['worst_case'][0]} {gate['worst_case'][1]:.3g}; "
+          f"largest " + ", ".join(f"{k} {v:.3g}" for k, v in top)
+          + f"; launches {json.dumps(counts)}")
+    return {"launches": counts, "worst_case": gate["worst_case"]}
+
+
+def access_launch_check(counts: dict, channels: int) -> None:
+    want = dict.fromkeys(counts, 0)
+    want.update({"nco_mix": channels, "fir_decimate": channels + ACCESS_SELF_CHECK_FIRS})
+    if counts != want:
+        raise AssertionError(f"spectrum access gate: launches {counts}, want {want}")
+
+
+def drive_spectrum_access(dev: torch.device) -> dict:
+    """Phase 49: `spectrum_access_gate()` at its full width (32 blocks of
+    2^20 samples at 30.72 MS/s, 1.092 s) with the counts set to 0 just
+    before it and read just after: every bar met; nco_mix one launch and
+    fir_decimate one launch a down-converted channel, and fir_decimate two
+    for the self-check; no other hand-written kernel. Then the cycle twice
+    more on the card-resident blocks (warm), once under the profiler, and
+    the first 4 blocks and the self-check on the card against CPU runs
+    (`access_agreement`); before those, the full-size waterfall stage
+    against the CPU (`waterfall_agreement`, 2^25 values)."""
+    zero_launch_counts()
+    gate = cognitive_gates.spectrum_access_gate(dev, cognitive_gates.DSA_ROWS)
+    counts = fm_counts()
+    out, b = gate["outputs"], gate["bars"]
+    access_launch_check(counts, len(out["candidates"]))
+    phase("49 spectrum access", f"{gate['samples']} samples ({cognitive_gates.DSA_ROWS} × "
+          f"{cognitive_gates.DSA_BLOCK}) at {cognitive_gates.DSA_RATE_HZ:.0f} S/s on {dev}: busy "
+          f"blocks a channel {b['busy_blocks']}; duty {json.dumps(b['duty'])} (planted "
+          f"{json.dumps(b['duty_planted'])}); idle channels {out['candidates']}; features "
+          + json.dumps({c: round(v, 6) for c, v in b["feature"].items()})
+          + f" (threshold {cognitive_gates.FEATURE_THRESHOLD}), off-feature max "
+          f"{max(b['off_feature'].values()):.6f}; flagged {b['flagged']}; labels "
+          f"{json.dumps(b['labels'])}; entropy "
+          + json.dumps({c: round(v, 4) for c, v in b["entropy"].items()})
+          + f"; grants {json.dumps(b['grants'])}, MCS {json.dumps(out['mcs'])}; excision "
+          f"{b.get('excise_drop_db', float('nan')):.2f} dB at the tone's bin, median "
+          f"{b.get('excise_median_shift_db', float('nan')):+.3f} dB; self-check "
+          f"{json.dumps(b['self_check'])}; power dBm "
+          f"{[round(float(v), 3) for v in gate['self_check']['power_dbm']]}; stage ms "
+          + json.dumps({k: round(v, 3) for k, v in gate["stage_ms"].items()})
+          + f"; launches {json.dumps(counts)}; {gate['seconds']:.4f} s end to end")
+    if not gate["ok"]:
+        raise AssertionError(f"spectrum access gate: bars {b}")
+    waterfall = cognitive_gates.waterfall_agreement(out)
+    phase("49 access waterfall", f"the card's {out['waterfall'].shape[0]} × "
+          f"{out['waterfall'].shape[1]} waterfall enhanced and scored on the card against the "
+          f"CPU: " + json.dumps(waterfall))
+    if not waterfall["ok"]:
+        raise AssertionError(f"spectrum access gate: waterfall card against CPU {waterfall}")
+    capture = gate["capture"]
+    run = {"launches": counts, "stage_ms": gate["stage_ms"], "seconds": gate["seconds"],
+           "channels": len(out["candidates"]), "waterfall_vs_cpu": waterfall}
+    del gate, out
+    warm = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cognitive_gates.spectrum_access_chain(capture)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    run["warm_chain_s"] = warm
+    phase("49 access warm", f"the cycle again on the card-resident blocks: "
+          f"{warm[0]:.4f}/{warm[1]:.4f} s")
+    prof = breakdown(lambda: cognitive_gates.spectrum_access_chain(capture), warm=False)
+    phase("49 access profile", f"one warm cycle on the card-resident blocks under the "
+          f"profiler: {prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    run["profile"] = prof
+    host = capture[:cognitive_gates.CARD_CPU_ROWS].cpu()
+    del capture
+    card = cognitive_gates.spectrum_access_chain(host.to(dev))
+    cpu = cognitive_gates.spectrum_access_chain(host)
+    mcs = card["mcs"][cognitive_gates.USERS[0]]
+    card_sc = cognitive_gates.self_check(mcs, dev)
+    cpu_sc = cognitive_gates.self_check(mcs, "cpu")
+    agreement = cognitive_gates.access_agreement(card, cpu, card_sc, cpu_sc)
+    phase("49 access card vs cpu", f"{cognitive_gates.CARD_CPU_ROWS} blocks and the "
+          f"self-check: " + json.dumps(agreement))
+    if not agreement["ok"]:
+        raise AssertionError(f"spectrum access gate: card against CPU {agreement}")
+    run["card_vs_cpu"] = agreement
+    return run
+
+
+def time_access_kernels(dev: torch.device) -> dict:
+    """Phase 50: nco_mix and fir_decimate at the access gate's DDC shape,
+    (32, 2^20) c64, K = 63, f = 16, against their plain versions and timed
+    beside conv1d (stride 16, TF32 off) and their bounds, on a capture of
+    the gate's scene."""
+    host, _ = cognitive_gates.dsa_scene(cognitive_gates.DSA_ROWS, cognitive_gates.DSA_BLOCK)
+    capture = torch.from_numpy(host).to(dev)
+    del host
+    return time_ddc_kernels(capture, cognitive_gates.channel_centre_hz(
+        cognitive_gates.BPSK_CHANNEL), cognitive_gates.DSA_RATE_HZ,
+        cognitive_gates.DDC_DECIMATION, "access", "50 access")
 
 
 def main() -> None:
@@ -3472,6 +3608,15 @@ def main() -> None:
     radar_run = drive_radar_gate(dev)
     drive_two_ray_case(dev, fading_run)
 
+    # Spectrum analysis, cognitive radio, instruments and sensing: every block
+    # card against CPU, then the DSA sensing cycle at full width with the
+    # counts set to 0 just before it and read just after (nco_mix and
+    # fir_decimate once a down-converted channel, fir_decimate twice more for
+    # the self-check), then the two kernels at the cycle's DDC shape.
+    sensing_run = drive_sensing_blocks_gate(dev)
+    access_run = drive_spectrum_access(dev)
+    access_timing = time_access_kernels(dev)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -3499,6 +3644,8 @@ def main() -> None:
         "launches_noisy_gate": gate_run["launches"]["dechirp_power"],
         "launches_fading_gate": fading_run["launches"]["dechirp_power"],
         "launches_radar_gate": radar_run["launches"]["dechirp_power"],
+        "launches_sensing_blocks_gate": sensing_run["launches"]["dechirp_power"],
+        "launches_access_gate": access_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -3523,6 +3670,8 @@ def main() -> None:
             **receiver_timing[name],
             **packet_timing[name],
             "launches_radar_gate": radar_run["launches"][name],
+            "launches_sensing_blocks_gate": sensing_run["launches"][name],
+            "launches_access_gate": access_run["launches"][name],
             "library_ms": None,
             "library_ms_receiver": None,
             "library_ms_packet": None,
@@ -3544,6 +3693,9 @@ def main() -> None:
         "launches_array_blocks_gate": blocks_run["launches"]["fir_decimate"],
         **blocks_run["timing"],
         "launches_radar_gate": radar_run["launches"]["fir_decimate"],
+        "launches_sensing_blocks_gate": sensing_run["launches"]["fir_decimate"],
+        "launches_access_gate": access_run["launches"]["fir_decimate"],
+        **access_timing["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -3556,6 +3708,9 @@ def main() -> None:
         "launches_monitor_gate": monitor_run["launches"]["nco_mix"],
         **monitor_run["timing"]["nco_mix"],
         "launches_radar_gate": radar_run["launches"]["nco_mix"],
+        "launches_sensing_blocks_gate": sensing_run["launches"]["nco_mix"],
+        "launches_access_gate": access_run["launches"]["nco_mix"],
+        **access_timing["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
@@ -3570,6 +3725,8 @@ def main() -> None:
         "launches_monitor_by_kind": monitor_run["by_kind"],
         "kinds": kind_timing,
         "launches_radar_gate": radar_run["launches"]["first_order_iir"],
+        "launches_sensing_blocks_gate": sensing_run["launches"]["first_order_iir"],
+        "launches_access_gate": access_run["launches"]["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

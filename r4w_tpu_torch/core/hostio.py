@@ -8,7 +8,9 @@ runtimes lack; PyTorch has both (``.to(device)``,
 (`magnitude` takes it for complex samples and |x| for real ones),
 which torch's `abs` (√(re² + im²) or hypot) misses by an ulp in about a
 third of the values. `rounded_sum` is a sum rounded once to float32, the
-rounding of the multiply-adds that the reference's compiled loops fuse.
+rounding of the multiply-adds that the reference's compiled loops fuse;
+`fma` is one such multiply-add, and `linspace` is ``jnp.linspace`` as the
+reference's compiled form computes it with one.
 
 Importing the module runs torch's CPU cos, sin, exp and log once on a few
 samples (`_initialise_vector_math`): their vectorised library initialises
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from r4w_tpu_torch.core.types import REAL_DTYPE, to_tensor
+from r4w_tpu_torch.core.types import REAL_DTYPE, real_scalar, to_tensor
 
 
 def cis(phase) -> torch.Tensor:
@@ -66,6 +68,45 @@ def rounded_sum(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = Non
         out = torch.empty(torch.broadcast_shapes(a.shape, b.shape), dtype=REAL_DTYPE,
                           device=a.device)
     return torch.add(a, b, out=out)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c of float32 tensors rounded once to float32 (a fused
+    multiply-add), exactly: the product is exact in float64, the sum's
+    float64 rounding error is kept (TwoSum), and where the float64 sum sits
+    on a float32 midpoint that error decides the direction, so no double
+    rounding remains."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.to(REAL_DTYPE)
+    d = s - r.double()
+    toward = torch.nextafter(r, torch.where(d > 0, torch.inf, -torch.inf).to(REAL_DTYPE))
+    midpoint = (d != 0) & (2.0 * d == toward.double() - r.double())
+    # on a midpoint the exact value lies past it toward `toward` when the
+    # error points the same way as d, else on r's side
+    return torch.where(midpoint & (err != 0) & ((err > 0) == (d > 0)), toward, r)
+
+
+def linspace(start: float, stop, num: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in float32 as the reference's
+    compiled form computes start·(1 − s) + stop·s: s = i·c with c the
+    float32 1/(num − 1), stop·s reassociated to i·(stop·c) and fused into
+    one multiply-add with start·(1 − s) (`fma`); then stop itself. `stop`
+    may be a 0-dim tensor (the result follows its device) or a number (on
+    `device`). The plain formula misses about a third of the points by an
+    ulp."""
+    stop_t = stop.to(REAL_DTYPE) if isinstance(stop, torch.Tensor) else real_scalar(stop, device)
+    device = stop_t.device
+    if num < 2:
+        return torch.full((num,), start, dtype=REAL_DTYPE, device=device)
+    div = num - 1
+    c = real_scalar(1.0, device) / real_scalar(div, device)
+    i = torch.arange(div, dtype=REAL_DTYPE, device=device)
+    head = fma(i, stop_t * c, real_scalar(start, device) * (1 - i * c))
+    return torch.cat([head, stop_t.reshape(1)])
 
 
 def _initialise_vector_math() -> None:

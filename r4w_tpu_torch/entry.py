@@ -69,7 +69,13 @@ digital-array pulse-Doppler radar at a full CPI (16 × 128 × 4096):
 jammer-nulling MVDR beams, MTI, matched filter, Doppler, 2-D CFAR, MUSIC
 and the tracker; `array_blocks_gate(device)` runs the radar, array and
 propagation blocks card against CPU; both live in `radar_gates` and are
-re-exported here. Every entry point runs on the CUDA card unless the caller
+re-exported here. `spectrum_access_gate(device, rows)` runs a
+dynamic-spectrum-access node's sensing cycle over a 20 MHz band at 30.72
+MS/s (occupancy, duty cycles, waterfall, down-converted idle channels,
+cyclic features, classification, leases, excision and the transmitter's
+self-check), and `sensing_blocks_gate(device)` runs the spectrum-analysis,
+cognitive, instrument and sensing blocks card against CPU; both live in
+`cognitive_gates` and are re-exported here. Every entry point runs on the CUDA card unless the caller
 names another device.
 """
 
@@ -96,6 +102,7 @@ from r4w_tpu_torch.kernels import viterbi
 from r4w_tpu_torch.modem_gates import fm_broadcast_gate, modem_family_gate  # noqa: F401
 from r4w_tpu_torch.monitor_gates import dsp_blocks_gate, spectrum_monitor_gate  # noqa: F401
 from r4w_tpu_torch.radar_gates import array_blocks_gate, array_radar_gate  # noqa: F401
+from r4w_tpu_torch.cognitive_gates import sensing_blocks_gate, spectrum_access_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

@@ -25,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.hostio import complex_abs
+from r4w_tpu_torch.core.hostio import complex_abs, linspace
 from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE, real_scalar, to_tensor
 from r4w_tpu_torch.kernels.recurrence import first_order_recurrence_dispatch
 from r4w_tpu_torch.ops.filters import fir_apply
@@ -248,21 +248,13 @@ def am_am_curve(x, y, num_bins: int = 32):
     bins (volterra_filter.rs:694). Returns (bin centres, means)."""
     xin = torch.abs(to_tensor(x).reshape(-1)).to(REAL_DTYPE)
     yout = torch.abs(to_tensor(y, device=xin.device).reshape(-1)).to(REAL_DTYPE)
-    edges = _linspace(0.0, torch.max(xin) + 1e-9, num_bins + 1)
+    edges = linspace(0.0, torch.max(xin) + 1e-9, num_bins + 1)
     which = torch.clamp(torch.searchsorted(edges, xin) - 1, 0, num_bins - 1)
     onehot = (which[:, None] == torch.arange(num_bins, device=xin.device)).to(REAL_DTYPE)
     sums = torch.sum(onehot * yout[:, None], dim=0)
     cnts = torch.sum(onehot, dim=0)
     centers = 0.5 * (edges[:-1] + edges[1:])
     return centers, sums / torch.clamp(cnts, min=1.0)
-
-
-def _linspace(start: float, stop: torch.Tensor, num: int) -> torch.Tensor:
-    """``jnp.linspace(start, stop, num)`` in float32: start·(1 − s) + stop·s
-    with s = i/(num − 1), then stop itself."""
-    div = num - 1
-    s = torch.arange(div, dtype=REAL_DTYPE, device=stop.device) / real_scalar(div, stop.device)
-    return torch.cat([start * (1 - s) + stop * s, stop.reshape(1)])
 
 
 # ------------------------------------------------------ overlap-save

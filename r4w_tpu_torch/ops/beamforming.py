@@ -29,10 +29,10 @@ import itertools
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.hostio import cis, complex_abs
+from r4w_tpu_torch.core.hostio import cis, complex_abs, linspace
 from r4w_tpu_torch.core.types import (IQ_DTYPE, REAL_DTYPE, real_scalar, resolve_device,
                                       to_tensor)
-from r4w_tpu_torch.ops.radar import linspace, steering_vector
+from r4w_tpu_torch.ops.radar import steering_vector
 
 
 def _steer(n_elems: int, angle_deg: float, spacing: float = 0.5, device=None):

@@ -208,16 +208,3 @@ def ambiguity_function(pulse, max_doppler_bins: int = 64, oversample: int = 1) -
     xc = torch.fft.ifft(sf * torch.conj(pf)[None, :], dim=-1)
     out = torch.fft.fftshift(xc, dim=-1)
     return out.real ** 2 + out.imag ** 2
-
-
-def linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
-    """``jnp.linspace(start, stop, num)`` in float32 on `device` by its
-    formula: start·(1 − s) + stop·s with s = i/(num − 1), then stop itself
-    (the reference's compiled form may contract it otherwise, an ulp
-    apart)."""
-    if num < 2:
-        return torch.full((num,), start, dtype=REAL_DTYPE, device=device)
-    div = num - 1
-    s = torch.arange(div, dtype=REAL_DTYPE, device=device) / real_scalar(div, device)
-    head = real_scalar(start, device) * (1 - s) + real_scalar(stop, device) * s
-    return torch.cat([head, real_scalar(stop, device).reshape(1)])

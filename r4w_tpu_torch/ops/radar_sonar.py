@@ -40,7 +40,7 @@ import math
 import numpy as np
 import torch
 
-from r4w_tpu_torch.core.hostio import cis, complex_abs, magnitude
+from r4w_tpu_torch.core.hostio import cis, complex_abs, linspace, magnitude
 from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE, real_scalar, to_tensor
 from r4w_tpu_torch.ops import radar as _radar
 from r4w_tpu_torch.ops.detect import _median
@@ -147,7 +147,7 @@ def bistatic_range_doppler(ref, surv, n_doppler: int = 64, n_range: int = 256):
     r = to_tensor(ref, IQ_DTYPE)
     s = to_tensor(surv, IQ_DTYPE, device=r.device)
     n = r.shape[0]
-    dops = _radar.linspace(-0.5, 0.5, n_doppler, r.device) * n_doppler
+    dops = linspace(-0.5, 0.5, n_doppler, r.device) * n_doppler
     t = torch.arange(n, dtype=REAL_DTYPE, device=r.device) / real_scalar(n, r.device)
     shifted = s[None, :] * cis(-2.0 * np.pi * dops[:, None] * t[None, :])
     nfft = 1 << (2 * n - 1).bit_length()
@@ -222,7 +222,7 @@ def radar_display_ppi(scan, n_xy: int = 128):
     (n_azimuth, n_range) -> (n_xy, n_xy) by one nearest gather."""
     s = to_tensor(scan, REAL_DTYPE)
     n_az, n_rng = s.shape
-    xs = _radar.linspace(-1.0, 1.0, n_xy, s.device)
+    xs = linspace(-1.0, 1.0, n_xy, s.device)
     yy, xx = torch.meshgrid(xs, xs, indexing="ij")
     rr = _sqrt_f32(xx ** 2 + yy ** 2)
     two_pi = real_scalar(2.0 * np.pi, s.device)

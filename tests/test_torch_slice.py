@@ -221,6 +221,9 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.modem_gates, r4w_tpu_torch.monitor_gates\n"
             "import r4w_tpu_torch.ops.stream_blocks, r4w_tpu_torch.ops.detect\n"
             "import r4w_tpu_torch.ops.adaptive, r4w_tpu_torch.ops.kalman\n"
+            "import r4w_tpu_torch.ops.spectral2, r4w_tpu_torch.ops.cognitive\n"
+            "import r4w_tpu_torch.ops.instruments, r4w_tpu_torch.ops.sensing\n"
+            "import r4w_tpu_torch.analysis, r4w_tpu_torch.cognitive_gates\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"

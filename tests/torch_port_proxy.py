@@ -78,13 +78,13 @@ class PortModule:
 
 
 def run_reference_test(monkeypatch, module: str, name: str, modules: dict | None = None,
-                       **swaps: str) -> None:
+                       params: dict | None = None, **swaps: str) -> None:
     """Run test `name` of the reference test module `module` (a file of
     tests/) with each name in `swaps` bound to a PortModule of the port's
     module at the dotted path it maps to, and each reference module named in
     `modules` (``{"r4w_tpu.ops.radar": "r4w_tpu_torch.ops.radar"}``) replaced
     in ``sys.modules`` for ``from r4w_tpu.ops.radar import cfar_1d`` in a
-    test's body."""
+    test's body; `params` are the arguments of a parametrised test."""
     ref = importlib.import_module(module)
     monkeypatch.setattr(types, "DEFAULT_DEVICE", torch.device("cpu"))
     for path, port_path in (modules or {}).items():
@@ -98,7 +98,7 @@ def run_reference_test(monkeypatch, module: str, name: str, modules: dict | None
             monkeypatch.setattr(ref, attr, proxy)
     owner, _, method = name.partition(".")
     fn = getattr(getattr(ref, owner)(), method) if method else getattr(ref, owner)
-    fn()
+    fn(**(params or {}))
 
 
 def _flat(value) -> list:
