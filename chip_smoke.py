@@ -148,7 +148,22 @@ the full-size waterfall stage (2^25 values) and the first 4 blocks' card
 run and the self-check against CPU runs, times
 the cycle warm and profiles it; phase 50 holds the NCO and FIR kernels
 against their plain versions at the gate's DDC shape ((32, 2^20) c64,
-K = 63, f = 16) and times them beside conv1d and their bounds. Each phase prints at least one line; a failed phase raises,
+K = 63, f = 16) and times them beside conv1d and their bounds. Then
+packets, protocols, ADS-B, audio and the applied voice tools: phase 51 runs
+``protocol_blocks_gate()`` (every BLOCKS entry of packets and audio and
+every public function of protocols, applied and adsb on their JAX tests'
+inputs, card against CPU, the worst case by name); phase 52 runs
+``dispatch_monitor_gate()``, a narrowband-FM dispatch monitor over 8.0 s of
+a 2.4 MS/s capture in 20 rows (eight channels down-converted by 10 and
+joined across the rows, selected and demodulated to 8 kHz audio, squelched,
+CTCSS tones, the DTMF ANI, four POCSAG pages, voice cleaning and pitch),
+with the counts set to 0 just before it and read just after (every bar;
+nco_mix 8, fir_decimate 11, first_order_iir 1 launches), times the chain
+warm, profiles it and holds a CPU run of the whole capture against the
+card's; phase 53 holds the NCO at the capture rows, the FIR at the
+monitor's four shapes (and its voice batch) and the recursion's ema kind
+at the squelch's (8, 192,000) against their plain versions and times them
+beside conv1d, their bounds and the recursion's serial floor. Each phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -217,7 +232,7 @@ from r4w_tpu_torch.monitor_gates import (MONITOR_BLOCK, MONITOR_DECIMATION, MONI
                                          monitor_agreement, spectrum_monitor_chain,
                                          spectrum_monitor_gate)
 from r4w_tpu_torch.profiling import breakdown
-from r4w_tpu_torch import cognitive_gates, radar_gates
+from r4w_tpu_torch import cognitive_gates, dispatch_gates, radar_gates
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
@@ -353,6 +368,7 @@ MONITOR_CARD_ROWS = 2      # phase 43's capture for the card against the CPU
 MONITOR_LAUNCHES = {"nco_mix": 4, "fir_decimate": 4, "first_order_iir": 3}
 CHAIN_PROBE_STEPS = 1 << 24
 ACCESS_SELF_CHECK_FIRS = 2  # the self-check burst's shaping and matched filter
+DISPATCH_LAUNCHES = {"nco_mix": 8, "fir_decimate": 11, "first_order_iir": 1}
 RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
                         "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
                         "r4w_tpu/ops/filters2.py:454", "r4w_tpu/ops/stream_blocks.py:53",
@@ -2984,34 +3000,9 @@ def time_ddc_kernels(capture: torch.Tensor, freq: float, rate: float, decimation
     phase(f"{label} nco", f"nco_mix at {tuple(capture.shape)}: kernel {kern[0]:.4f}/"
           f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms; bound {b_ms:.4f} ms by "
           f"{b_by}; max|Δ|/max|plain| {nco_rel:.3g}")
-    rows, n = capture.shape
     taps = torch.from_numpy(filters.design_lowpass(
         DDC_TAPS, rate / (2.5 * decimation), rate)).to(capture.device)
-    rev = taps.flip(0)
-    got = fir.fir_decimate_cuda(base, rev, decimation, zero_state=True)
-    abs_err, rel = rel_err(got, fir.fir_decimate(base, rev, decimation, zero_state=True))
-    if not rel < FIR_REL_TOL:
-        raise AssertionError(f"fir_decimate at the {key} shape: {rel:.3g}")
-    kern, plain = in_turns(
-        lambda: fir.fir_decimate(base, rev, decimation, zero_state=True),
-        lambda: fir.fir_decimate_cuda(base, rev, decimation, zero_state=True))
-    planes = F.pad(torch.view_as_real(base).permute(0, 2, 1), (DDC_TAPS - 1, 0)).contiguous()
-    weight = rev.view(1, 1, -1).repeat(2, 1, 1)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        lib_out = F.conv1d(planes, weight, stride=decimation, groups=2)
-        library = cuda_ms(lambda: F.conv1d(planes, weight, stride=decimation, groups=2))
-    _, lib_rel = rel_err(torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()), got)
-    if not lib_rel < FIR_REL_TOL:
-        raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
-    b_ms, b_by = fir_bound(rows, n + DDC_TAPS - 1, DDC_TAPS, decimation)
-    out["fir_decimate"] = {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
-                           f"library_ms_{key}": library, f"bound_ms_{key}": b_ms,
-                           f"bound_by_{key}": b_by, f"max_abs_err_{key}": abs_err,
-                           f"shape_{key}": [rows, n, DDC_TAPS, decimation]}
-    phase(f"{label} fir", f"fir_decimate c64 ({rows}, {n}) K={DDC_TAPS} f={decimation} "
-          f"from zero state: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/"
-          f"{plain[1]:.4f} ms, conv1d (cuDNN, FP32, groups=2, max|Δ|/max|y| {lib_rel:.3g}) "
-          f"{library:.4f} ms; bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|ref| {rel:.3g}")
+    out["fir_decimate"] = time_fir_shape(base, taps, decimation, key, f"{label} fir")
     return out
 
 
@@ -3333,6 +3324,221 @@ def time_access_kernels(dev: torch.device) -> dict:
         cognitive_gates.DDC_DECIMATION, "access", "50 access")
 
 
+def drive_protocol_blocks_gate(dev: torch.device) -> dict:
+    """Phase 51: `protocol_blocks_gate()` on the card with the counts set to
+    0 just before it and read just after: every BLOCKS entry of packets and
+    audio and every public function of protocols, applied and adsb on their
+    JAX tests' inputs, card against CPU (decisions equal, floats within the
+    stated tolerances), the worst case by name."""
+    zero_launch_counts()
+    gate = dispatch_gates.protocol_blocks_gate(dev)
+    counts = fm_counts()
+    if not gate["ok"]:
+        raise AssertionError(f"protocol blocks gate: failed "
+                             f"{ {k: gate['worst'][k] for k in gate['failed']} }, missing "
+                             f"{gate['missing']}")
+    top = sorted(gate["worst"].items(), key=lambda kv: -kv[1])[:5]
+    phase("51 protocol blocks gate", f"{len(gate['worst'])} cases card = CPU on {dev} (every "
+          f"BLOCKS entry of packets and audio, every public function of protocols, applied and "
+          f"adsb; decisions equal, floats within their tolerances); worst "
+          f"{gate['worst_case'][0]} {gate['worst_case'][1]:.3g}; largest "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top) + f"; launches {json.dumps(counts)}")
+    return {"launches": counts, "worst_case": gate["worst_case"]}
+
+
+def dispatch_launch_check(counts: dict) -> None:
+    want = dict.fromkeys(counts, 0)
+    want.update(DISPATCH_LAUNCHES)
+    if counts != want:
+        raise AssertionError(f"dispatch monitor gate: launches {counts}, want {want}")
+
+
+def drive_dispatch_monitor(dev: torch.device) -> dict:
+    """Phase 52: `dispatch_monitor_gate()` at its full width (8.0 s at
+    2.4 MS/s in 20 rows of 960,000 samples, eight NBFM channels) with the
+    counts set to 0 just before it and read just after: every bar met;
+    nco_mix 8 launches (one a channel), fir_decimate 11 (8 down-converters,
+    the channel select, the audio filter, the voice band-pass),
+    first_order_iir 1 (the squelch); no other hand-written kernel. Then the
+    chain twice more on the card-resident rows (warm), once under the
+    profiler, and a CPU run of the whole capture against the card's run
+    (`dispatch_agreement`)."""
+    zero_launch_counts()
+    gate = dispatch_gates.dispatch_monitor_gate(dev)
+    counts = fm_counts()
+    out, b = gate["outputs"], gate["bars"]
+    dispatch_launch_check(counts)
+    voice = [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in row.items()
+              if k != "pitch_frames_passing"} for row in b["voice"]]
+    phase("52 dispatch monitor", f"{gate['samples']} samples ({dispatch_gates.ROWS} × "
+          f"{dispatch_gates.BLOCK}) at {dispatch_gates.CAPTURE_RATE_HZ:.0f} S/s on {dev}: squelch "
+          f"{json.dumps(b['squelch'])}; tones {json.dumps(b['tones'])} ({b['tone_windows_checked']} "
+          f"planted windows checked), false tones {json.dumps(b['false_tones'])} (idle E, G at most "
+          f"{dispatch_gates.MAX_IDLE_FALSE_TONES}; carrier F, H at most "
+          f"{b['carrier_false_bound']}, at {dispatch_gates.CARRIER_FALSE_MIN_HZ} Hz or above); ANI "
+          f"{b.get('dial')} (want {dispatch_gates.EXPECTED_ANI!r}); pages {b.get('pages')}; voice "
+          f"{json.dumps(voice)}; stage ms "
+          + json.dumps({k: round(v, 3) for k, v in gate["stage_ms"].items()})
+          + f"; launches {json.dumps(counts)}; {gate['seconds']:.4f} s end to end")
+    if not gate["ok"]:
+        raise AssertionError(f"dispatch monitor gate: bars {b}")
+    capture = gate["capture"]
+    run = {"launches": counts, "stage_ms": gate["stage_ms"], "seconds": gate["seconds"],
+           "bars": {k: b[k] for k in ("squelch", "false_tones", "pages", "voice")}}
+    truth = gate["truth"]
+    card_out = {k: out[k] for k in ("open", "tones", "dial", "pages", "channels", "audio",
+                                     "voice")}
+    del gate, out
+    warm = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch_gates.dispatch_monitor_chain(capture)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    run["warm_chain_s"] = warm
+    phase("52 dispatch warm", f"the chain again on the card-resident rows: "
+          f"{warm[0]:.4f}/{warm[1]:.4f} s")
+    prof = breakdown(lambda: dispatch_gates.dispatch_monitor_chain(capture), warm=False)
+    phase("52 dispatch profile", f"one warm chain on the card-resident rows under the "
+          f"profiler: {prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    run["profile"] = prof
+    host = capture.cpu()
+    del capture
+    t0 = time.perf_counter()
+    cpu = dispatch_gates.dispatch_monitor_chain(host)
+    cpu_s = time.perf_counter() - t0
+    agreement = dispatch_gates.dispatch_agreement(card_out, cpu, truth)
+    phase("52 dispatch card vs cpu", f"the whole capture on the CPU ({cpu_s:.2f} s on the "
+          f"host): " + json.dumps(agreement))
+    if not agreement["ok"]:
+        raise AssertionError(f"dispatch monitor gate: card against CPU {agreement}")
+    run["card_vs_cpu"] = agreement
+    run["cpu_chain_s"] = cpu_s
+    run["inputs"] = {"capture": host, "channels": card_out["channels"],
+                     "voice_shape": [len(card_out["voice"]), max(
+                         v["bandpassed"].shape[-1] for v in card_out["voice"])]}
+    return run
+
+
+def time_fir_shape(x: torch.Tensor, taps: torch.Tensor, factor: int, key: str,
+                   label: str) -> dict:
+    """fir_decimate at one of a path's shapes from zero state: kernel against
+    its plain version within FIR_REL_TOL, kernel and plain timed in turns,
+    cuDNN's conv1d (FP32, the two planes as groups for complex input, stride
+    `factor`, TF32 off) as the library yardstick, beside its bound; the
+    numbers keyed ``*_{key}``."""
+    rows, n = x.shape
+    k = taps.shape[0]
+    rev = taps.flip(0)
+    got = fir.fir_decimate_cuda(x, rev, factor, zero_state=True)
+    abs_err, rel = rel_err(got, fir.fir_decimate(x, rev, factor, zero_state=True))
+    if not rel < FIR_REL_TOL:
+        raise AssertionError(f"fir_decimate at the {key} shape: {rel:.3g}")
+    kern, plain = in_turns(lambda: fir.fir_decimate(x, rev, factor, zero_state=True),
+                           lambda: fir.fir_decimate_cuda(x, rev, factor, zero_state=True))
+    if x.is_complex():
+        planes = F.pad(torch.view_as_real(x).permute(0, 2, 1), (k - 1, 0)).contiguous()
+        weight = rev.view(1, 1, -1).repeat(2, 1, 1)
+        groups = 2
+    else:
+        planes = F.pad(x[:, None, :], (k - 1, 0))
+        weight = rev.view(1, 1, -1)
+        groups = 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_out = F.conv1d(planes, weight, stride=factor, groups=groups)
+        library = cuda_ms(lambda: F.conv1d(planes, weight, stride=factor, groups=groups))
+    lib_y = (torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()) if x.is_complex()
+             else lib_out[:, 0])
+    _, lib_rel = rel_err(lib_y, got)
+    if not lib_rel < FIR_REL_TOL:
+        raise AssertionError(f"the conv1d yardstick computes another function: {lib_rel:.3g}")
+    item = 8 if x.is_complex() else 4
+    n_out = got.shape[1]
+    b_ms, b_by = bound(item * rows * n + 4 * k + item * rows * n_out,
+                       (4 if x.is_complex() else 2) * rows * n_out * k)
+    phase(label, f"fir_decimate {'c64' if x.is_complex() else 'float32'} ({rows}, {n}) K={k} "
+          f"f={factor} from zero state: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain "
+          f"{plain[0]:.4f}/{plain[1]:.4f} ms, conv1d (cuDNN, FP32, max|Δ|/max|y| {lib_rel:.3g}) "
+          f"{library:.4f} ms; bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|ref| {rel:.3g}")
+    return {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
+            f"library_ms_{key}": library, f"bound_ms_{key}": b_ms, f"bound_by_{key}": b_by,
+            f"max_abs_err_{key}": abs_err, f"shape_{key}": [rows, n, k, factor]}
+
+
+def time_dispatch_kernels(dev: torch.device, run: dict) -> dict:
+    """Phase 53: the hand kernels at the dispatch monitor's shapes, each
+    against its plain version and timed: nco_mix at the capture rows
+    (20, 960,070) c64 and fir_decimate there (K = 63, f = 10), beside
+    conv1d (`time_ddc_kernels`); fir_decimate at the channel select's
+    (8, 1,920,000) c64 K = 255 f = 10, the audio filter's (8, 192,000)
+    float32 K = 63 f = 3, the voice band-pass at (8, 64,000) float32 K = 127
+    f = 1 (the audio rows) and at the gate's own segment batch; the
+    recursion's ema kind at the squelch's (8, 192,000) bit for bit,
+    timed beside its bytes bound and its serial floor (the bare chain)."""
+    dg = dispatch_gates
+    capture = run["inputs"]["capture"].to(dev)
+    out = time_ddc_kernels(capture, dg.CHANNELS[0].offset_hz, dg.CAPTURE_RATE_HZ,
+                           dg.DDC_DECIMATION, "dispatch", "53 dispatch")
+    del capture
+    chans = run["inputs"]["channels"].to(dev)
+    taps = lambda k, fc, fs: torch.from_numpy(filters.design_lowpass(k, fc, fs)).to(dev)
+    fir_entry = time_fir_shape(chans, taps(dg.SELECT_TAPS, dg.SELECT_CUTOFF_HZ,
+                                           dg.CHANNEL_RATE_HZ), dg.SELECT_DECIMATION,
+                               "dispatch_select", "53 dispatch select fir")
+    iq = fir.fir_decimate_cuda(chans, taps(dg.SELECT_TAPS, dg.SELECT_CUTOFF_HZ,
+                                           dg.CHANNEL_RATE_HZ).flip(0), dg.SELECT_DECIMATION,
+                               zero_state=True)
+    del chans
+    from r4w_tpu_torch.ops.modem import quadrature_demod
+    fm = quadrature_demod(iq, dg.IF_RATE_HZ / (2 * math.pi * dg.VOICE_DEVIATION_HZ))
+    fir_entry.update(time_fir_shape(fm, taps(dg.AUDIO_TAPS, dg.AUDIO_CUTOFF_HZ, dg.IF_RATE_HZ),
+                                    dg.AUDIO_DECIMATION, "dispatch_audio",
+                                    "53 dispatch audio fir"))
+    audio = fir.fir_decimate_cuda(fm, taps(dg.AUDIO_TAPS, dg.AUDIO_CUTOFF_HZ,
+                                           dg.IF_RATE_HZ).flip(0), dg.AUDIO_DECIMATION,
+                                  zero_state=True)
+    bp = torch.from_numpy(filters.design_bandpass(dg.VOICE_TAPS, dg.VOICE_LO_HZ, dg.VOICE_HI_HZ,
+                                                  dg.AUDIO_RATE_HZ)).to(dev)
+    fir_entry.update(time_fir_shape(audio, bp, 1, "dispatch_voice_rows",
+                                    "53 dispatch voice fir"))
+    segs, length = run["inputs"]["voice_shape"]
+    fir_entry.update(time_fir_shape(audio[:segs, :length].contiguous(), bp, 1, "dispatch_voice",
+                                    "53 dispatch voice fir"))
+    out["fir_decimate"].update(fir_entry)
+    # the squelch's recursion: |iq|² through the ema kind from zero state
+    from r4w_tpu_torch.core.hostio import magnitude
+    u = (magnitude(iq) ** 2).contiguous()
+    got = recurrence.first_order_recurrence_cuda(u, "ema", dg.SQUELCH_ALPHA)
+    want = recurrence.first_order_recurrence(u.cpu(), "ema", dg.SQUELCH_ALPHA)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"first_order_iir ema at {tuple(u.shape)}: differs from the plain "
+                             f"loop at {int(torch.sum(got.cpu() != want))} samples")
+    ms = [queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, "ema", dg.SQUELCH_ALPHA),
+                    3) for _ in range(2)]
+    u_host = u.cpu()
+    plain = min(host_ms(lambda: recurrence.first_order_recurrence(
+        u_host, "ema", dg.SQUELCH_ALPHA)) for _ in range(2))
+    steps = u.shape[1]
+    probe = chain_probe(steps, "ema", dg.SQUELCH_ALPHA)
+    rows = u.shape[0]
+    rec = {"ms_dispatch": sum(ms) / 2, "plain_ms_dispatch": plain, "shape_dispatch": [rows, steps],
+           "bound_ms_dispatch": 1e3 * 8 * rows * steps / HBM_BYTES_PER_S,
+           "bound_by_dispatch": "bytes", "serial_floor_ms_dispatch": steps * probe[
+               "ns_per_step"] * 1e-6, "chain_cycles_per_step_dispatch": probe["cycles_per_step"],
+           "chain_sm_mhz_dispatch": probe["sm_mhz"], "max_abs_err_dispatch": 0.0,
+           "library_ms_dispatch": None}
+    phase("53 dispatch recursion", f"first_order_iir ema at the squelch's ({rows}, {steps}) "
+          f"float32: card = plain bit for bit; kernel {ms[0]:.4f}/{ms[1]:.4f} ms queued, plain "
+          f"step loop (host) {plain:.1f} ms; bytes bound {rec['bound_ms_dispatch']:.5f} ms, "
+          f"serial floor {rec['serial_floor_ms_dispatch']:.4f} ms (bare chain "
+          f"{probe['cycles_per_step']:.3f} cycles a step at {probe['sm_mhz']:.0f} MHz)")
+    out["first_order_iir"] = rec
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3617,6 +3823,15 @@ def main() -> None:
     access_run = drive_spectrum_access(dev)
     access_timing = time_access_kernels(dev)
 
+    # Packets, protocols, ADS-B, audio and applied: every block card against
+    # CPU, then the NBFM dispatch monitor at full width with the counts set to
+    # 0 just before it and read just after (nco_mix 8, fir_decimate 11,
+    # first_order_iir 1), then the three kernels at the monitor's shapes.
+    protocol_run = drive_protocol_blocks_gate(dev)
+    dispatch_run = drive_dispatch_monitor(dev)
+    dispatch_timing = time_dispatch_kernels(dev, dispatch_run)
+    del dispatch_run["inputs"]
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -3646,6 +3861,8 @@ def main() -> None:
         "launches_radar_gate": radar_run["launches"]["dechirp_power"],
         "launches_sensing_blocks_gate": sensing_run["launches"]["dechirp_power"],
         "launches_access_gate": access_run["launches"]["dechirp_power"],
+        "launches_protocol_blocks_gate": protocol_run["launches"]["dechirp_power"],
+        "launches_dispatch_gate": dispatch_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -3672,6 +3889,8 @@ def main() -> None:
             "launches_radar_gate": radar_run["launches"][name],
             "launches_sensing_blocks_gate": sensing_run["launches"][name],
             "launches_access_gate": access_run["launches"][name],
+            "launches_protocol_blocks_gate": protocol_run["launches"][name],
+            "launches_dispatch_gate": dispatch_run["launches"][name],
             "library_ms": None,
             "library_ms_receiver": None,
             "library_ms_packet": None,
@@ -3696,6 +3915,9 @@ def main() -> None:
         "launches_sensing_blocks_gate": sensing_run["launches"]["fir_decimate"],
         "launches_access_gate": access_run["launches"]["fir_decimate"],
         **access_timing["fir_decimate"],
+        "launches_protocol_blocks_gate": protocol_run["launches"]["fir_decimate"],
+        "launches_dispatch_gate": dispatch_run["launches"]["fir_decimate"],
+        **dispatch_timing["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -3711,6 +3933,9 @@ def main() -> None:
         "launches_sensing_blocks_gate": sensing_run["launches"]["nco_mix"],
         "launches_access_gate": access_run["launches"]["nco_mix"],
         **access_timing["nco_mix"],
+        "launches_protocol_blocks_gate": protocol_run["launches"]["nco_mix"],
+        "launches_dispatch_gate": dispatch_run["launches"]["nco_mix"],
+        **dispatch_timing["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
@@ -3727,6 +3952,9 @@ def main() -> None:
         "launches_radar_gate": radar_run["launches"]["first_order_iir"],
         "launches_sensing_blocks_gate": sensing_run["launches"]["first_order_iir"],
         "launches_access_gate": access_run["launches"]["first_order_iir"],
+        "launches_protocol_blocks_gate": protocol_run["launches"]["first_order_iir"],
+        "launches_dispatch_gate": dispatch_run["launches"]["first_order_iir"],
+        **dispatch_timing["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

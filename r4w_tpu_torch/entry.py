@@ -75,8 +75,13 @@ MS/s (occupancy, duty cycles, waterfall, down-converted idle channels,
 cyclic features, classification, leases, excision and the transmitter's
 self-check), and `sensing_blocks_gate(device)` runs the spectrum-analysis,
 cognitive, instrument and sensing blocks card against CPU; both live in
-`cognitive_gates` and are re-exported here. Every entry point runs on the CUDA card unless the caller
-names another device.
+`cognitive_gates` and are re-exported here. `dispatch_monitor_gate(device)`
+runs a narrowband-FM dispatch monitor over 8.0 s of a 2.4 MS/s capture
+(eight 12.5 kHz channels: squelch, CTCSS tones, a DTMF ANI, POCSAG pages,
+voice cleaning and pitch), and `protocol_blocks_gate(device)` runs the
+packet, protocol, ADS-B, audio and applied blocks card against CPU; both
+live in `dispatch_gates` and are re-exported here. Every entry point runs
+on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ from r4w_tpu_torch.modem_gates import fm_broadcast_gate, modem_family_gate  # no
 from r4w_tpu_torch.monitor_gates import dsp_blocks_gate, spectrum_monitor_gate  # noqa: F401
 from r4w_tpu_torch.radar_gates import array_blocks_gate, array_radar_gate  # noqa: F401
 from r4w_tpu_torch.cognitive_gates import sensing_blocks_gate, spectrum_access_gate  # noqa: F401
+from r4w_tpu_torch.dispatch_gates import dispatch_monitor_gate, protocol_blocks_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

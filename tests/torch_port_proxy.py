@@ -9,7 +9,8 @@ default device on the CPU, and calls the test function (``"Class.method"``
 for a test in a class). A `PortModule` calls the port's function with
 JAX arrays and numpy arrays as CPU tensors of the dtype JAX would give
 them with 64-bit types off (float64 → float32, int64 → int32, complex128 →
-complex64), and returns tensors as numpy arrays, inside tuples, named
+complex64), a JAX threefry key as the port's (`channel.threefry`) key
+tuple, and returns tensors as numpy arrays, inside tuples, named
 tuples, lists and dicts too, so that the reference test's own assertions
 read the port's outputs unchanged.
 
@@ -40,6 +41,8 @@ _CANONICAL = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
 
 
 def to_port(value):
+    if isinstance(value, jax.Array) and jax.dtypes.issubdtype(value.dtype, jax.dtypes.prng_key):
+        return tuple(int(v) for v in np.asarray(jax.random.key_data(value)))  # a threefry key
     if isinstance(value, jax.Array):
         value = np.asarray(value)
     if isinstance(value, np.ndarray):
