@@ -163,7 +163,27 @@ warm, profiles it and holds a CPU run of the whole capture against the
 card's; phase 53 holds the NCO at the capture rows, the FIR at the
 monitor's four shapes (and its voice batch) and the recursion's ema kind
 at the squelch's (8, 192,000) against their plain versions and times them
-beside conv1d, their bounds and the recursion's serial floor. Each phase prints at least one line; a failed phase raises,
+beside conv1d, their bounds and the recursion's serial floor. Then navigation,
+biomedical, the infrastructure fills, timing and waveform specs: phase 54
+runs ``infra_blocks_gate()`` (every BLOCKS entry of navigation, biomedical
+and infra_fills, every alias of ``alias_blocks``, and the public classes and
+functions of timing and waveform_spec on their JAX tests' inputs, card
+against CPU, the worst case by name) and holds the DPD fit on the link's
+training burst card against CPU; phase 55 runs
+``hopping_link_gate()``, a frequency-hopping 16-QAM link with digital
+predistortion over 10.0 s at 2.048 MS/s (250 hops of 64 channels: the
+spec-built waveform, DPD, the hop synthesiser's rotator, the Rapp PA, AWGN
+at 30 and 20 dB, a loopback TCP sample link, the indexed recorder with
+sample-clock timestamps, de-hopping and two decimating FIRs a block of 25
+hops, the demodulator), with the counts set to 0 just before it and read
+just after (every bar; nco_mix one launch a channel in the transmitter and
+one a channel of each block in each receiver, fir_decimate two a block),
+runs it warm, profiles its device part and holds CPU runs of the same scene
+and captures against the card's; phase 56 holds the NCO through
+``rotator_apply``'s ω path at (8, 77,824) and the FIR at the de-hopper's
+(25, 77,824) K = 63 f = 16 and (25, 4,864) K = 63 f = 8 against their plain
+versions and times them beside conv1d and their bounds. Each phase prints
+at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -232,7 +252,7 @@ from r4w_tpu_torch.monitor_gates import (MONITOR_BLOCK, MONITOR_DECIMATION, MONI
                                          monitor_agreement, spectrum_monitor_chain,
                                          spectrum_monitor_gate)
 from r4w_tpu_torch.profiling import breakdown
-from r4w_tpu_torch import cognitive_gates, dispatch_gates, radar_gates
+from r4w_tpu_torch import cognitive_gates, dispatch_gates, hop_gates, radar_gates
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
@@ -369,6 +389,7 @@ MONITOR_LAUNCHES = {"nco_mix": 4, "fir_decimate": 4, "first_order_iir": 3}
 CHAIN_PROBE_STEPS = 1 << 24
 ACCESS_SELF_CHECK_FIRS = 2  # the self-check burst's shaping and matched filter
 DISPATCH_LAUNCHES = {"nco_mix": 8, "fir_decimate": 11, "first_order_iir": 1}
+HOP_NCO_ROWS = 8           # phase 56's rotator rows, the most dwells of one channel in a block
 RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
                         "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
                         "r4w_tpu/ops/filters2.py:454", "r4w_tpu/ops/stream_blocks.py:53",
@@ -465,11 +486,12 @@ def randn_iq(shape, gen: torch.Generator) -> torch.Tensor:
                          torch.randn(shape, generator=gen, device=gen.device))
 
 
-def in_turns(plain, kernel) -> tuple[list[float], list[float]]:
-    """(kernel ms ×2, plain ms ×2), taken plain, kernel, kernel, plain on one card."""
-    p = [cuda_ms(plain)]
-    k = [cuda_ms(kernel), cuda_ms(kernel)]
-    p.append(cuda_ms(plain))
+def in_turns(plain, kernel, timer=cuda_ms) -> tuple[list[float], list[float]]:
+    """(kernel ms ×2, plain ms ×2), taken plain, kernel, kernel, plain on one card
+    by `timer` (back to back, or `queued_ms`)."""
+    p = [timer(plain)]
+    k = [timer(kernel), timer(kernel)]
+    p.append(timer(plain))
     return k, p
 
 
@@ -3424,12 +3446,13 @@ def drive_dispatch_monitor(dev: torch.device) -> dict:
 
 
 def time_fir_shape(x: torch.Tensor, taps: torch.Tensor, factor: int, key: str,
-                   label: str) -> dict:
+                   label: str, timer=cuda_ms) -> dict:
     """fir_decimate at one of a path's shapes from zero state: kernel against
     its plain version within FIR_REL_TOL, kernel and plain timed in turns,
     cuDNN's conv1d (FP32, the two planes as groups for complex input, stride
-    `factor`, TF32 off) as the library yardstick, beside its bound; the
-    numbers keyed ``*_{key}``."""
+    `factor`, TF32 off) as the library yardstick, beside its bound, each by
+    `timer` (back to back, or `queued_ms` for device time at launch-bound
+    shapes); the numbers keyed ``*_{key}``."""
     rows, n = x.shape
     k = taps.shape[0]
     rev = taps.flip(0)
@@ -3438,7 +3461,7 @@ def time_fir_shape(x: torch.Tensor, taps: torch.Tensor, factor: int, key: str,
     if not rel < FIR_REL_TOL:
         raise AssertionError(f"fir_decimate at the {key} shape: {rel:.3g}")
     kern, plain = in_turns(lambda: fir.fir_decimate(x, rev, factor, zero_state=True),
-                           lambda: fir.fir_decimate_cuda(x, rev, factor, zero_state=True))
+                           lambda: fir.fir_decimate_cuda(x, rev, factor, zero_state=True), timer)
     if x.is_complex():
         planes = F.pad(torch.view_as_real(x).permute(0, 2, 1), (k - 1, 0)).contiguous()
         weight = rev.view(1, 1, -1).repeat(2, 1, 1)
@@ -3449,7 +3472,7 @@ def time_fir_shape(x: torch.Tensor, taps: torch.Tensor, factor: int, key: str,
         groups = 1
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         lib_out = F.conv1d(planes, weight, stride=factor, groups=groups)
-        library = cuda_ms(lambda: F.conv1d(planes, weight, stride=factor, groups=groups))
+        library = timer(lambda: F.conv1d(planes, weight, stride=factor, groups=groups))
     lib_y = (torch.view_as_complex(lib_out.permute(0, 2, 1).contiguous()) if x.is_complex()
              else lib_out[:, 0])
     _, lib_rel = rel_err(lib_y, got)
@@ -3459,8 +3482,9 @@ def time_fir_shape(x: torch.Tensor, taps: torch.Tensor, factor: int, key: str,
     n_out = got.shape[1]
     b_ms, b_by = bound(item * rows * n + 4 * k + item * rows * n_out,
                        (4 if x.is_complex() else 2) * rows * n_out * k)
+    how = " device (queued)" if timer is queued_ms else ""
     phase(label, f"fir_decimate {'c64' if x.is_complex() else 'float32'} ({rows}, {n}) K={k} "
-          f"f={factor} from zero state: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain "
+          f"f={factor} from zero state{how}: kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain "
           f"{plain[0]:.4f}/{plain[1]:.4f} ms, conv1d (cuDNN, FP32, max|Δ|/max|y| {lib_rel:.3g}) "
           f"{library:.4f} ms; bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|ref| {rel:.3g}")
     return {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
@@ -3536,6 +3560,200 @@ def time_dispatch_kernels(dev: torch.device, run: dict) -> dict:
           f"serial floor {rec['serial_floor_ms_dispatch']:.4f} ms (bare chain "
           f"{probe['cycles_per_step']:.3f} cycles a step at {probe['sm_mhz']:.0f} MHz)")
     out["first_order_iir"] = rec
+    return out
+
+
+def dpd_solve_spread(dev: torch.device) -> dict:
+    """The DPD fit (order 7, float32 normal equations with a condition
+    number near 2·10⁴) on the hopping gate's training burst on the card and
+    on the CPU: the coefficients' max|Δ|/max|CPU| and the transmit EVM each
+    gives on the gate's first 25 dwells."""
+    from r4w_tpu_torch.ops import infra_fills as inf
+    from r4w_tpu_torch.ops.impairments import rapp_pa
+    hg = hop_gates
+    scene = hg.hop_scene(hg.BLOCK_HOPS)
+    coef, evm = {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        x = torch.from_numpy(scene["train"]).to(d)
+        c, _ = inf.dpd_learn_polynomial(x, rapp_pa(x, hg.PA_SATURATION, hg.PA_SMOOTHNESS),
+                                        order=hg.DPD_ORDER)
+        sym = hg.spec().build_waveform(d).modulate(scene["bits"].reshape(-1)).reshape(
+            hg.BLOCK_HOPS, -1)
+        ideal = hg.DRIVE * sym.repeat_interleave(hg.UPSAMPLE, dim=-1)
+        coef[name] = c.cpu()
+        evm[name] = float(hg.transmit_evm_db(rapp_pa(inf.dpd_apply(ideal, c), hg.PA_SATURATION,
+                                                     hg.PA_SMOOTHNESS), ideal))
+    return {"coef_rel": dispatch_gates.compare(coef["card"], coef["cpu"]),
+            "evm_delta_db": abs(evm["card"] - evm["cpu"]), "evm_db": evm}
+
+
+def drive_infra_blocks_gate(dev: torch.device) -> dict:
+    """Phase 54: `infra_blocks_gate()` on the card with the counts set to 0
+    just before it and read just after: every BLOCKS entry of navigation,
+    biomedical and infra_fills, every alias of `alias_blocks`, and the
+    public classes and functions of timing and waveform_spec on their JAX
+    tests' inputs, card against CPU (decisions equal, floats within the
+    stated tolerances), the worst case by name and the DPD coefficients'
+    card-against-CPU difference; then the DPD fit on the hopping gate's
+    burst card against CPU (the transmit EVM within EVM_TOL_DB)."""
+    zero_launch_counts()
+    gate = hop_gates.infra_blocks_gate(dev)
+    counts = fm_counts()
+    if not gate["ok"]:
+        raise AssertionError(f"infra blocks gate: failed "
+                             f"{ {k: gate['worst'][k] for k in gate['failed']} }, missing "
+                             f"{gate['missing']}")
+    top = sorted(gate["worst"].items(), key=lambda kv: -kv[1])[:5]
+    phase("54 infra blocks gate", f"{len(gate['worst'])} cases card = CPU on {dev} (every "
+          f"BLOCKS entry of navigation, biomedical and infra_fills, every alias, timing and "
+          f"waveform_spec; decisions equal, floats within their tolerances); worst "
+          f"{gate['worst_case'][0]} {gate['worst_case'][1]:.3g}; largest "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top)
+          + f"; DPD coefficients max|Δ|/max|CPU| {gate['dpd_coef_rel']:.3g}; launches "
+          + json.dumps(counts))
+    spread = dpd_solve_spread(dev)
+    phase("54 dpd solve", "order-7 fit on the hopping gate's burst, card against CPU: "
+          + json.dumps(spread))
+    if not (spread["coef_rel"] <= hop_gates.COEF_TOL
+            and spread["evm_delta_db"] <= hop_gates.EVM_TOL_DB):
+        raise AssertionError(f"DPD fit: card and CPU differ {spread}")
+    return {"launches": counts, "worst_case": gate["worst_case"],
+            "dpd_coef_rel": gate["dpd_coef_rel"], "dpd_spread": spread}
+
+
+def hop_launch_check(run: dict, scene: dict) -> dict:
+    """The launches the hopping gate must make, by stage: the transmitter
+    one NCO launch a channel of the pattern, each receiver one NCO launch a
+    channel of each block and two FIR launches a block; nothing else."""
+    pattern = scene["pattern"]
+    blocks = range(0, scene["hops"], hop_gates.BLOCK_HOPS)
+    rx_nco = sum(len(np.unique(pattern[b:b + hop_gates.BLOCK_HOPS])) for b in blocks)
+    zero = dict.fromkeys(run["launches"]["transmit"], 0)
+    want = {"transmit": {**zero, "nco_mix": len(np.unique(pattern))},
+            "stream_receive": {**zero, "nco_mix": rx_nco, "fir_decimate": 2 * len(blocks)},
+            "receive_20db": {**zero, "nco_mix": rx_nco, "fir_decimate": 2 * len(blocks)}}
+    if run["launches"] != want:
+        raise AssertionError(f"hopping link gate: launches {run['launches']}, want {want}")
+    return want
+
+
+def drive_hopping_link(dev: torch.device) -> dict:
+    """Phase 55: `hopping_link_gate()` at its full width (250 hops, 10.0 s at
+    2.048 MS/s, 64 channels) with the counts set to 0 just before it and
+    read just after: every bar met; nco_mix one launch a channel in the
+    transmitter (63) and one a channel of each block in each receiver,
+    fir_decimate 2 a block; no other hand-written kernel. Then the chain
+    again on the same scene (warm), the device part (transmitter, channel,
+    both receivers from the card-resident captures, no TCP) under the
+    profiler, and the CPU's transmitter, stream and receivers on the same
+    scene and captures against the card's (`hopping_agreement`)."""
+    import tempfile
+    hg = hop_gates
+    zero_launch_counts()
+    gate = hg.hopping_link_gate(dev)
+    counts = fm_counts()
+    run, scene, b = gate["run"], gate["scene"], gate["bars"]
+    per_stage = hop_launch_check(run, scene)
+    phase("55 hopping link", f"{gate['samples']} samples ({scene['hops']} hops × {hg.PERIOD}) at "
+          f"{hg.CAPTURE_RATE_HZ:.0f} S/s on {dev}: messages {b['messages']}/{scene['hops']} "
+          f"byte-equal over TCP ({gate['stream_mb_per_s']:.1f} MB/s, {gate['stream_s']:.4f} s "
+          f"for the stream with its recording and receiving); hop control "
+          f"{[b[k] for k in ('channel_at_ok', 'in_guard_ok', 'boundaries_ok')]}, {b['visited']} "
+          f"channels; recorder find {b['find_ok']}, read {b['read_ok']}, {b['file_bytes']} bytes; "
+          f"timestamps {b['time_ok']}; transmit EVM {b['evm_db']['without']:.4f} → "
+          f"{b['evm_db']['with']:.4f} dB ({b['dpd_gain_db']:.4f} dB by DPD); {b['bit_errors']} "
+          f"bit errors of {b['bits_scored']} at {hg.ESN0_DB} dB (SNR estimate "
+          f"{b['snr_db'][0]:.4f}-{b['snr_db'][1]:.4f} dB); {b['bit_errors_20db']} at "
+          f"{hg.BER_ESN0_DB} dB (BER {b['ber_20db']:.3g}); stage ms "
+          + json.dumps({k: round(v, 3) for k, v in gate["stage_ms"].items()})
+          + f"; launches {json.dumps(counts)} (by stage {json.dumps(per_stage)}); "
+          f"{gate['seconds']:.4f} s end to end")
+    if not gate["ok"]:
+        raise AssertionError(f"hopping link gate: bars {b}")
+    out = {"launches": counts, "launches_by_stage": per_stage, "stage_ms": gate["stage_ms"],
+           "seconds": gate["seconds"], "stream_mb_per_s": gate["stream_mb_per_s"],
+           "bars": {k: b[k] for k in ("evm_db", "dpd_gain_db", "bit_errors", "bits_scored",
+                                      "bit_errors_20db", "ber_20db", "snr_db")}}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hg.hopping_link_chain(scene, dev, tmp + "/warm.iq")
+        torch.cuda.synchronize()
+        out["warm_s"] = time.perf_counter() - t0
+    phase("55 hopping warm", f"the link again on the same scene: {out['warm_s']:.4f} s")
+    const = hg.spec().build_waveform(dev).constellation_points()
+    taps = hg.design_taps(dev)
+    noise = torch.from_numpy(scene["noise"]).to(dev)
+
+    def device_part():
+        tx = hg.transmit(scene, dev)
+        hg.receive(hg.add_noise(tx["tx"], noise, tx["power"], hg.ESN0_DB), run["ctl"], const,
+                   taps)
+        hg.receive(hg.add_noise(tx["tx"], noise, tx["power"], hg.BER_ESN0_DB), run["ctl"],
+                   const, taps)
+
+    prof = breakdown(device_part, warm=True)
+    del noise
+    phase("55 hopping profile", f"one warm device part (transmitter, channel, both receivers "
+          f"from the card-resident captures, no TCP) under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    out["profile"] = prof
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cpu_tx, cpu_link, cpu_low = hg.cpu_runs(gate, tmp + "/cpu.iq")
+        out["cpu_s"] = time.perf_counter() - t0
+        agreement = hg.hopping_agreement(gate, cpu_tx, cpu_link, cpu_low, scene)
+    phase("55 hopping card vs cpu", f"the whole scene and capture on the CPU ({out['cpu_s']:.2f} s "
+          f"on the host): " + json.dumps(agreement))
+    if not agreement["ok"]:
+        raise AssertionError(f"hopping link gate: card against CPU {agreement}")
+    out["card_vs_cpu"] = agreement
+    out["inputs"] = {"capture": run["capture"], "pattern": scene["pattern"], "ctl": run["ctl"]}
+    return out
+
+
+def time_hop_kernels(dev: torch.device, run: dict) -> dict:
+    """Phase 56: the hand kernels at the hopping link's shapes, each against
+    its plain version and timed: nco_mix through `rotator_apply`'s ω path
+    (`nco_rotate_cuda`) at (HOP_NCO_ROWS, 77,824) c64, within NCO_REL_TOL as
+    in phase 13; fir_decimate at the de-hopper's (25, 77,824) c64 K = 63
+    f = 16 and (25, 4,864) c64 K = 63 f = 8 from zero state, within
+    FIR_REL_TOL as in phase 12, beside conv1d (TF32 off) and their bounds;
+    all timed queued behind a sleeping stream (device time: at these few-MB
+    shapes back-to-back calls measure the host's launch rate)."""
+    hg = hop_gates
+    capture = run["inputs"]["capture"]
+    pattern = run["inputs"]["pattern"]
+    block = capture[:hg.BLOCK_HOPS, :hg.DWELL].contiguous()
+    x = block[:HOP_NCO_ROWS].contiguous()
+    w = -hg.channel_increment(int(pattern[0]))
+    got = nco.nco_rotate_cuda(x, w)
+    abs_err, rel = rel_err(got, nco.nco_rotate(x, w))
+    if not rel < NCO_REL_TOL:
+        raise AssertionError(f"nco_rotate at the hop shape: {rel:.3g}")
+    kern, plain = in_turns(lambda: nco.nco_rotate(x, w), lambda: nco.nco_rotate_cuda(x, w),
+                           queued_ms)
+    b_ms, b_by = bound(16 * x.numel(), 0)
+    key = "hop_rotator"
+    out = {"nco_mix": {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
+                       f"bound_ms_{key}": b_ms, f"bound_by_{key}": b_by,
+                       f"library_ms_{key}": None, f"max_rel_err_{key}": rel,
+                       f"max_abs_err_{key}": abs_err, f"shape_{key}": list(x.shape)}}
+    phase("56 hop rotator nco", f"nco_mix through rotator_apply's ω path at {tuple(x.shape)} "
+          f"(ω = {w:.6f} rad/sample), device (queued): kernel {kern[0]:.4f}/{kern[1]:.4f} ms, "
+          f"plain "
+          f"{plain[0]:.4f}/{plain[1]:.4f} ms; bound {b_ms:.4f} ms by {b_by}; max|Δ|/max|plain| "
+          f"{rel:.3g}")
+    base = hg.rotate_by_channel(block, pattern[:hg.BLOCK_HOPS], -1.0)
+    taps1, taps2 = hg.design_taps(dev)
+    fir_entry = time_fir_shape(base, taps1, hg.DDC_DECIMATION, "hop_ddc", "56 hop ddc fir",
+                               queued_ms)
+    y1 = fir.fir_decimate_cuda(base, taps1.flip(0), hg.DDC_DECIMATION, zero_state=True)
+    fir_entry.update(time_fir_shape(y1, taps2, hg.SYM_DECIMATION, "hop_symbol",
+                                    "56 hop symbol fir", queued_ms))
+    out["fir_decimate"] = fir_entry
     return out
 
 
@@ -3832,6 +4050,17 @@ def main() -> None:
     dispatch_timing = time_dispatch_kernels(dev, dispatch_run)
     del dispatch_run["inputs"]
 
+    # Navigation, biomedical, the infrastructure fills, timing and waveform
+    # specs: every block card against CPU, then the frequency-hopping 16-QAM
+    # link with DPD over TCP at full width with the counts set to 0 just
+    # before it and read just after (nco_mix one launch a channel in the
+    # transmitter and a channel of each block in each receiver, fir_decimate
+    # two a block), then the two kernels at the link's shapes.
+    infra_run = drive_infra_blocks_gate(dev)
+    hop_run = drive_hopping_link(dev)
+    hop_timing = time_hop_kernels(dev, hop_run)
+    del hop_run["inputs"]
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -3863,6 +4092,8 @@ def main() -> None:
         "launches_access_gate": access_run["launches"]["dechirp_power"],
         "launches_protocol_blocks_gate": protocol_run["launches"]["dechirp_power"],
         "launches_dispatch_gate": dispatch_run["launches"]["dechirp_power"],
+        "launches_infra_blocks_gate": infra_run["launches"]["dechirp_power"],
+        "launches_hop_gate": hop_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -3891,6 +4122,8 @@ def main() -> None:
             "launches_access_gate": access_run["launches"][name],
             "launches_protocol_blocks_gate": protocol_run["launches"][name],
             "launches_dispatch_gate": dispatch_run["launches"][name],
+            "launches_infra_blocks_gate": infra_run["launches"][name],
+            "launches_hop_gate": hop_run["launches"][name],
             "library_ms": None,
             "library_ms_receiver": None,
             "library_ms_packet": None,
@@ -3918,6 +4151,11 @@ def main() -> None:
         "launches_protocol_blocks_gate": protocol_run["launches"]["fir_decimate"],
         "launches_dispatch_gate": dispatch_run["launches"]["fir_decimate"],
         **dispatch_timing["fir_decimate"],
+        "launches_infra_blocks_gate": infra_run["launches"]["fir_decimate"],
+        "launches_hop_gate": hop_run["launches"]["fir_decimate"],
+        "launches_hop_gate_by_stage": {k: v["fir_decimate"] for k, v in
+                                       hop_run["launches_by_stage"].items()},
+        **hop_timing["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -3936,6 +4174,11 @@ def main() -> None:
         "launches_protocol_blocks_gate": protocol_run["launches"]["nco_mix"],
         "launches_dispatch_gate": dispatch_run["launches"]["nco_mix"],
         **dispatch_timing["nco_mix"],
+        "launches_infra_blocks_gate": infra_run["launches"]["nco_mix"],
+        "launches_hop_gate": hop_run["launches"]["nco_mix"],
+        "launches_hop_gate_by_stage": {k: v["nco_mix"] for k, v in
+                                       hop_run["launches_by_stage"].items()},
+        **hop_timing["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
@@ -3955,6 +4198,8 @@ def main() -> None:
         "launches_protocol_blocks_gate": protocol_run["launches"]["first_order_iir"],
         "launches_dispatch_gate": dispatch_run["launches"]["first_order_iir"],
         **dispatch_timing["first_order_iir"],
+        "launches_infra_blocks_gate": infra_run["launches"]["first_order_iir"],
+        "launches_hop_gate": hop_run["launches"]["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -80,8 +80,15 @@ runs a narrowband-FM dispatch monitor over 8.0 s of a 2.4 MS/s capture
 (eight 12.5 kHz channels: squelch, CTCSS tones, a DTMF ANI, POCSAG pages,
 voice cleaning and pitch), and `protocol_blocks_gate(device)` runs the
 packet, protocol, ADS-B, audio and applied blocks card against CPU; both
-live in `dispatch_gates` and are re-exported here. Every entry point runs
-on the CUDA card unless the caller names another device.
+live in `dispatch_gates` and are re-exported here. `hopping_link_gate(device,
+hops)` runs a frequency-hopping 16-QAM link with digital predistortion over
+10 s at 2.048 MS/s (250 hops of 64 channels: the spec-built waveform, DPD,
+the hop synthesiser, AWGN, a loopback TCP sample link, the indexed
+recorder with timestamps, de-hopping, two decimating filters and the
+demodulator), and `infra_blocks_gate(device)` runs the navigation,
+biomedical, infrastructure, timing and waveform-spec blocks card against
+CPU; both live in `hop_gates` and are re-exported here. Every entry point
+runs on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -109,6 +116,7 @@ from r4w_tpu_torch.monitor_gates import dsp_blocks_gate, spectrum_monitor_gate  
 from r4w_tpu_torch.radar_gates import array_blocks_gate, array_radar_gate  # noqa: F401
 from r4w_tpu_torch.cognitive_gates import sensing_blocks_gate, spectrum_access_gate  # noqa: F401
 from r4w_tpu_torch.dispatch_gates import dispatch_monitor_gate, protocol_blocks_gate  # noqa: F401
+from r4w_tpu_torch.hop_gates import hopping_link_gate, infra_blocks_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

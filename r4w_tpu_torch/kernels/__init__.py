@@ -6,7 +6,14 @@ from r4w_tpu_torch.kernels.dechirp import (
     dechirp_power_dispatch,
 )
 from r4w_tpu_torch.kernels.fir import fir_decimate, fir_decimate_cuda, fir_decimate_dispatch
-from r4w_tpu_torch.kernels.nco import nco_mix, nco_mix_cuda, nco_mix_dispatch
+from r4w_tpu_torch.kernels.nco import (
+    nco_mix,
+    nco_mix_cuda,
+    nco_mix_dispatch,
+    nco_rotate,
+    nco_rotate_cuda,
+    nco_rotate_dispatch,
+)
 from r4w_tpu_torch.kernels.recurrence import (
     first_order_recurrence,
     first_order_recurrence_cuda,
@@ -34,6 +41,9 @@ __all__ = [
     "nco_mix",
     "nco_mix_cuda",
     "nco_mix_dispatch",
+    "nco_rotate",
+    "nco_rotate_cuda",
+    "nco_rotate_dispatch",
     "viterbi_forward",
     "viterbi_forward_cuda",
     "viterbi_forward_dispatch",

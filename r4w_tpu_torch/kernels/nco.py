@@ -17,7 +17,11 @@ the launch; the design is in the source's header.
 `nco_mix_dispatch` is what the mixers call: the plain version for a
 tensor on the CPU, the kernel for a tensor on a CUDA device, and an error
 for anything else. It never falls back from the kernel to the plain
-version. ``nco_mix.launches`` counts kernel launches.
+version. `nco_rotate`, `nco_rotate_cuda` and `nco_rotate_dispatch` are the
+same three with ω given in radians per sample (a phase rotator's increment,
+rounded to float32 and nothing else), which spares a caller the division
+f/fs that could round ω to another float32. ``nco_mix.launches`` counts
+kernel launches of both.
 """
 
 from __future__ import annotations
@@ -63,11 +67,22 @@ def omega(freq_hz: float, sample_rate: float) -> float:
     return float(np.float32(2.0 * np.pi * freq_hz / sample_rate))
 
 
+def _f32(value: float) -> float:
+    """`value` rounded to float32, as a Python float."""
+    return float(np.float32(value))
+
+
+def rotor_phase(n: int, w: float, phase0: float = 0.0, device=None) -> torch.Tensor:
+    """(n,) float32 phase ω·float(j) + φ₀ with ω = float32(w): the product and
+    the sum each rounded."""
+    index = torch.arange(n, dtype=REAL_DTYPE, device=device)
+    return index * _f32(w) + _f32(phase0)
+
+
 def nco_phase(n: int, freq_hz: float, sample_rate: float, phase0: float = 0.0,
               device=None) -> torch.Tensor:
     """(n,) float32 phase ω·float(j) + φ₀: the product and the sum each rounded."""
-    index = torch.arange(n, dtype=REAL_DTYPE, device=device)
-    return index * omega(freq_hz, sample_rate) + float(np.float32(phase0))
+    return rotor_phase(n, omega(freq_hz, sample_rate), phase0, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,19 +94,31 @@ def _kernel():
     return fn
 
 
+def nco_rotate(x: torch.Tensor, w: float, phase0: float = 0.0,
+               gain: float = 1.0) -> torch.Tensor:
+    """Plain version: (..., N) complex64 -> x·(gain·cis(ph)), ph from `rotor_phase`."""
+    ph = rotor_phase(x.shape[-1], w, phase0, device=x.device)
+    return x * (_f32(gain) * cis(ph))
+
+
 def nco_mix(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: float = 0.0,
             gain: float = 1.0) -> torch.Tensor:
     """Plain version: (..., N) complex64 -> x·(gain·cis(ph)), ph from `nco_phase`."""
-    ph = nco_phase(x.shape[-1], freq_hz, sample_rate, phase0, device=x.device)
-    return x * (float(np.float32(gain)) * cis(ph))
+    return nco_rotate(x, omega(freq_hz, sample_rate), phase0, gain)
 
 
-nco_mix.launches = 0  # launches of the Hopper kernel, counted by nco_mix_cuda
+nco_mix.launches = 0  # launches of the Hopper kernel, counted by nco_rotate_cuda
 
 
 def nco_mix_cuda(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: float = 0.0,
                  gain: float = 1.0) -> torch.Tensor:
     """Hopper kernel: (B, N) complex64 -> (B, N) complex64."""
+    return nco_rotate_cuda(x, omega(freq_hz, sample_rate), phase0, gain)
+
+
+def nco_rotate_cuda(x: torch.Tensor, w: float, phase0: float = 0.0,
+                    gain: float = 1.0) -> torch.Tensor:
+    """Hopper kernel with ω = float32(w) rad/sample: (B, N) complex64 -> (B, N)."""
     if x.device.type != "cuda":
         raise ValueError(f"nco_mix_cuda needs a tensor on a CUDA device, got {x.device}")
     if x.dtype != IQ_DTYPE:
@@ -107,9 +134,8 @@ def nco_mix_cuda(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0: fl
     plan = nco_plan(rows, n, (x.data_ptr() | out.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), out.data_ptr(), rows, n, omega(freq_hz, sample_rate),
-                        float(np.float32(phase0)), float(np.float32(gain)), plan.blocks_x,
-                        plan.blocks_y, int(plan.pairs), stream)
+        err = _kernel()(x.data_ptr(), out.data_ptr(), rows, n, _f32(w), _f32(phase0),
+                        _f32(gain), plan.blocks_x, plan.blocks_y, int(plan.pairs), stream)
     if err != 0:
         raise RuntimeError(f"r4w_nco_mix launch failed with cudaError {err}")
     nco_mix.launches += 1
@@ -123,11 +149,17 @@ def nco_mix_dispatch(x: torch.Tensor, freq_hz: float, sample_rate: float, phase0
     CPU: the plain version. CUDA: the Hopper kernel, on the leading axes
     flattened into rows. Any other device raises.
     """
+    return nco_rotate_dispatch(x, omega(freq_hz, sample_rate), phase0, gain)
+
+
+def nco_rotate_dispatch(x: torch.Tensor, w: float, phase0: float = 0.0,
+                        gain: float = 1.0) -> torch.Tensor:
+    """(..., N) complex64 rotated by ω = float32(w) rad/sample from φ₀, by the
+    samples' device, as `nco_mix_dispatch`."""
     if x.device.type == "cpu":
-        return nco_mix(x, freq_hz, sample_rate, phase0, gain)
+        return nco_rotate(x, w, phase0, gain)
     if x.device.type != "cuda":
         raise ValueError(f"no nco_mix path for device {x.device}")
     lead, n = x.shape[:-1], x.shape[-1]
-    y = nco_mix_cuda(x.reshape(math.prod(lead), n).contiguous(), freq_hz, sample_rate,
-                     phase0, gain)
+    y = nco_rotate_cuda(x.reshape(math.prod(lead), n).contiguous(), w, phase0, gain)
     return y.reshape(x.shape)

@@ -227,6 +227,9 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.ops.protocols, r4w_tpu_torch.ops.packets\n"
             "import r4w_tpu_torch.ops.audio, r4w_tpu_torch.ops.applied, r4w_tpu_torch.adsb\n"
             "import r4w_tpu_torch.dispatch_gates\n"
+            "import r4w_tpu_torch.ops.navigation, r4w_tpu_torch.ops.biomedical\n"
+            "import r4w_tpu_torch.ops.infra_fills, r4w_tpu_torch.timing\n"
+            "import r4w_tpu_torch.waveform_spec, r4w_tpu_torch.hop_gates\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
