@@ -182,8 +182,28 @@ runs it warm, profiles its device part and holds CPU runs of the same scene
 and captures against the card's; phase 56 holds the NCO through
 ``rotator_apply``'s ω path at (8, 77,824) and the FIR at the de-hopper's
 (25, 77,824) K = 63 f = 16 and (25, 4,864) K = 63 f = 8 against their plain
-versions and times them beside conv1d and their bounds. Each phase prints
-at least one line; a failed phase raises,
+versions and times them beside conv1d and their bounds. Then the Galileo
+E1C pilot chain and the host layer's data plane: phase 57 runs
+``e1c_pilot_gate()`` (eight E1C SVs at 34 dB-Hz and two absent controls over
+50 code periods at 5 MS/s: acquisition, the CS25 joint searches, the code
+sweeps, the wiped pilot pass; then E1B I/NAV pages decoded off the pilot
+loops over 4.35 s), with the counts set to 0 just before it and read just
+after (every bar: 8/8 acquired, 0/2 false alarms, 8/8 tracked, the E1B
+pass with every CRC-ok page's data equal to the truth; each Viterbi kernel
+one launch an SV), phase 58 runs it again from a fresh capture (warm),
+phase 59 profiles its pilot stage, phase 60 holds the CPU's acquisition of
+the card's capture, the CPU's pilot stage and the CPU's I/NAV decode of the
+card's symbols against the card's; phase 61 runs ``rf_scene_gate()`` (one
+second at 30.72 MS/s in blocks of 2^20: five emitters around a moving
+receiver, the loopback simulator's AWGN, the attenuator, a triggered
+SigMF capture and its replay, stream tags and PDUs, a BFSK payload decoded,
+metrics over HTTP, config), with the counts set to 0 just before it and
+read just after (every bar; fir_decimate 2 launches), warm, one warm chain
+under the profiler, the FIR at the decode's two shapes against its plain
+version (timed beside conv1d and its bound), and the whole scene on the CPU
+against the card's; phase 62 holds both Viterbi kernels at
+an SV's I/NAV parts against their plain versions bit for bit and times
+them. Each phase prints at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -199,6 +219,7 @@ import json
 import math
 import re
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -252,7 +273,11 @@ from r4w_tpu_torch.monitor_gates import (MONITOR_BLOCK, MONITOR_DECIMATION, MONI
                                          monitor_agreement, spectrum_monitor_chain,
                                          spectrum_monitor_gate)
 from r4w_tpu_torch.profiling import breakdown
-from r4w_tpu_torch import cognitive_gates, dispatch_gates, hop_gates, radar_gates
+from r4w_tpu_torch import cognitive_gates, dispatch_gates, hop_gates, radar_gates, scene_gates
+from r4w_tpu_torch import config as r4w_config
+from r4w_tpu_torch.observe import MetricsRegistry
+from r4w_tpu_torch.entry import e1c_pilot_gate, rf_scene_gate
+from r4w_tpu_torch.gnss import e1c_common, e1c_tracking
 from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
@@ -390,6 +415,12 @@ CHAIN_PROBE_STEPS = 1 << 24
 ACCESS_SELF_CHECK_FIRS = 2  # the self-check burst's shaping and matched filter
 DISPATCH_LAUNCHES = {"nco_mix": 8, "fir_decimate": 11, "first_order_iir": 1}
 HOP_NCO_ROWS = 8           # phase 56's rotator rows, the most dwells of one channel in a block
+# The E1C pilot chain and the RF scene (phases 57-62): card against CPU. The pilot
+# stage's open-loop prompts are float32 sums over 20,000 samples whose order
+# differs between the card and the CPU (tests/test_torch_e1c_tracking.py holds the
+# CPU against JAX with the same tolerances)
+E1C_LOCK_TOL, E1C_CN0_TOL_DB, E1C_DOP_TOL_HZ, E1C_JUMP_TOL = 0.005, 0.5, 0.05, 0.01
+SCENE_IQ_TOL = 1e-5        # max|card - CPU| / max|CPU| of the capture: cos/sin and sums an ulp apart
 RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
                         "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
                         "r4w_tpu/ops/filters2.py:454", "r4w_tpu/ops/stream_blocks.py:53",
@@ -3647,7 +3678,6 @@ def drive_hopping_link(dev: torch.device) -> dict:
     both receivers from the card-resident captures, no TCP) under the
     profiler, and the CPU's transmitter, stream and receivers on the same
     scene and captures against the card's (`hopping_agreement`)."""
-    import tempfile
     hg = hop_gates
     zero_launch_counts()
     gate = hg.hopping_link_gate(dev)
@@ -3755,6 +3785,261 @@ def time_hop_kernels(dev: torch.device, run: dict) -> dict:
                                     "56 hop symbol fir", queued_ms))
     out["fir_decimate"] = fir_entry
     return out
+
+
+def drive_e1c_gate(dev: torch.device) -> dict:
+    """Phase 57: `e1c_pilot_gate()` at full width (8 Galileo E1C SVs at 34
+    dB-Hz and 2 absent controls over 50 periods at 5 MS/s; then the dual
+    E1C + E1B capture over 4.35 s) with the counts set to 0 just before it
+    and read just after: 8/8 acquired, 0/2 false alarms, 8/8 tracked by the
+    reference's rule, the E1B pass with every CRC-ok page's data equal to
+    the truth; each SV's I/NAV decode one launch of each Viterbi kernel, no
+    other hand-written kernel. Phase 58: the gate again from a fresh capture
+    (warm). Phase 59: the pilot stage on the gate's capture under the
+    profiler."""
+    e1c_common.clear_memo()
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CallSpy(inav, "decode_parts") as decodes:
+        out = e1c_pilot_gate(dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = fm_counts()
+    e1b = out["e1b"]
+    per = {r["prn"]: {k: round(r[k], 4) if isinstance(r[k], float) else r[k]
+                      for k in ("tracked", "lock", "sec_dom", "sec_shift", "doppler_err_hz",
+                                "dop_resid_hz", "boc_jump_subchips", "cn0_est_dbhz",
+                                "cn0_acq_dbhz")} for r in out["per_prn"]}
+    pages = {sv["prn"]: f"{sv['pages_data_match']}/{sv['pages_crc_ok']}/{sv['pages_seen']}"
+             for sv in e1b["per_sv"]}
+    phase("57 e1c pilot gate", f"{out['of']} SVs at {e1c_common.GATE_CN0_DBHZ} dB-Hz, "
+          f"{out['periods']} periods at {e1c_common.GATE_RATE_HZ / 1e6} MS/s on {out['device']}: "
+          f"acquired {out['acquired']}/{out['of']}, false alarms {out['false_alarms']}/"
+          f"{len(out['controls'])} (PRNs {out['controls']}), tracked {out['value']}/{out['of']}, "
+          f"C/N0 mean {out['cn0_mean_dbhz']}; E1B {e1b['svs_pages_ok']}/{e1b['of']} SVs over "
+          f"{e1b['epochs']} epochs (pages match/CRC ok/seen {json.dumps(pages)}); bars "
+          f"{json.dumps(out['bars'])}; first run {first_s:.4f} s")
+    phase("57 e1c per prn", json.dumps(per))
+    phase("57 e1c stages", "pilot gen_s {:.4f}, acquire_s {:.4f}, track_s {:.4f} ({}); E1B "
+          "gen_s {:.4f}, acquire_s {:.4f}, track_s {:.4f} ({}), decode_s {:.4f}; decodes "
+          "(parts, 240) {}; launches {}".format(
+              out["gen_s"], out["acquire_s"], out["track_s"],
+              json.dumps({k: round(v, 4) for k, v in out["stages_s"].items()}), e1b["gen_s"],
+              e1b["acquire_s"], e1b["track_s"],
+              json.dumps({k: round(v, 4) for k, v in e1b["stages_s"].items()}), e1b["decode_s"],
+              decodes.shapes, json.dumps(counts)))
+    if not out["ok"]:
+        raise AssertionError(f"the E1C pilot gate failed its bars {out['bars']}: {per}, {pages}")
+    want = {**dict.fromkeys(counts, 0), "viterbi_forward": len(decodes.shapes),
+            "viterbi_traceback": len(decodes.shapes)}
+    if len(decodes.shapes) != out["of"] or counts != want:
+        raise AssertionError(f"the E1C gate launched {counts}, want {want}")
+    run = {"launches": counts, "lanes": [s[0] for s in decodes.shapes], "first_s": first_s,
+           "per_prn": per, "out": out}
+    e1c_common.clear_memo()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = e1c_pilot_gate(dev)
+    torch.cuda.synchronize()
+    run["warm_s"] = time.perf_counter() - t0
+    phase("58 e1c warm", f"the gate again from a fresh capture: {run['warm_s']:.4f} s (first "
+          f"{first_s:.4f} s); bars {json.dumps(warm['bars'])}")
+    if not warm["ok"]:
+        raise AssertionError(f"the E1C pilot gate failed warm: {warm['bars']}")
+    cfg, rx, prns, n, waves, acq_all, _ = e1c_common.e1c_capture(
+        e1c_common.gate_config(), out["periods"], dev)
+    acq = acquisition.AcquisitionResult(*[f[:n] for f in acq_all])
+
+    def pilot_stage():
+        e1c_tracking.track_channels(rx, cfg.sample_rate, prns[:n], waves[:n], acq,
+                                    out["periods"], e1c_common.GATE_CN0_DBHZ)
+
+    prof = breakdown(pilot_stage, warm=False)
+    phase("59 e1c profile", f"the pilot stage (8 channels, 50 periods: sweep, two joint "
+          f"searches and coherent sweeps, carrier seed, pilot pass) under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          + json.dumps(prof["top_ms"]))
+    run["profile"] = prof
+    return run
+
+
+def check_e1c_card_against_cpu(dev: torch.device, run: dict) -> dict:
+    """Phase 60: the gate's 50-period pilot stage on the CPU against the
+    card: acquisition of the card's capture (decisions, code phases and
+    Doppler bins equal, metrics within 1e-3 relative), `track_channels` on
+    the CPU from the CPU's acquisition (sec_shift and tracked equal; lock
+    within E1C_LOCK_TOL, C/N0 within E1C_CN0_TOL_DB, refined Doppler within
+    E1C_DOP_TOL_HZ, jump within E1C_JUMP_TOL subchips), and the I/NAV decode
+    of the card's soft symbols on the CPU (page bits equal)."""
+    out = run["out"]
+    cfg, rx, prns, n, waves, acq_card, _ = e1c_common.e1c_capture(
+        e1c_common.gate_config(), out["periods"], dev)
+    t0 = time.perf_counter()
+    rx_cpu = rx.cpu()
+    acq_cpu = e1c_common.acquire_e1c(rx_cpu, prns, waves, cfg.sample_rate, out["periods"])
+    acq_s = time.perf_counter() - t0
+    for field in ("detected", "code_phase", "doppler_hz"):
+        if not torch.equal(getattr(acq_card, field).cpu(), getattr(acq_cpu, field)):
+            raise AssertionError(f"E1C acquisition {field}: card {getattr(acq_card, field)}, "
+                                 f"CPU {getattr(acq_cpu, field)}")
+    metric_rel = float(torch.max(torch.abs(acq_card.peak_metric.cpu() - acq_cpu.peak_metric)
+                                 / acq_cpu.peak_metric))
+    t1 = time.perf_counter()
+    per_cpu, _ = e1c_tracking.track_channels(
+        rx_cpu, cfg.sample_rate, prns[:n], waves[:n],
+        acquisition.AcquisitionResult(*[f[:n] for f in acq_cpu]), out["periods"],
+        e1c_common.GATE_CN0_DBHZ)
+    track_s = time.perf_counter() - t1
+    worst = {"lock": 0.0, "cn0_est_dbhz": 0.0, "doppler_hz": 0.0, "boc_jump_subchips": 0.0}
+    for g, w in zip(out["per_prn"], per_cpu):
+        for key in ("detected", "sec_shift", "tracked"):
+            if g[key] != w[key]:
+                raise AssertionError(f"E1C PRN {g['prn']} {key}: card {g[key]}, CPU {w[key]}")
+        for key in worst:
+            worst[key] = max(worst[key], abs(g[key] - w[key]))
+    tols = {"lock": E1C_LOCK_TOL, "cn0_est_dbhz": E1C_CN0_TOL_DB, "doppler_hz": E1C_DOP_TOL_HZ,
+            "boc_jump_subchips": E1C_JUMP_TOL}
+    if any(worst[k] > tols[k] for k in worst):
+        raise AssertionError(f"E1C pilot stage card vs CPU: {worst}, tolerances {tols}")
+    pages_equal = True
+    for soft, sv in zip(out["e1b"]["soft"], out["e1b"]["per_sv"]):
+        cpu_pages = [g["data112"].tolist() for g in inav.decode_stream(soft, "cpu")
+                     if g["crc_ok"]]
+        pages_equal &= cpu_pages == sv["data112"]
+    if not pages_equal:
+        raise AssertionError("E1C I/NAV pages decoded on the CPU differ from the card's")
+    phase("60 e1c card vs cpu", f"acquisition of the card's capture on the CPU ({acq_s:.2f} s): "
+          f"decisions, code phases and Doppler bins equal, metrics max rel {metric_rel:.3g}; "
+          f"pilot stage on the CPU ({track_s:.2f} s): sec_shift and tracked equal for all "
+          f"{n} SVs, worst |Δ| {json.dumps({k: float(f'{v:.4g}') for k, v in worst.items()})} "
+          f"(tolerances {json.dumps(tols)}); I/NAV pages of the card's soft symbols decoded on "
+          f"the CPU equal the card's")
+    if not metric_rel <= 1e-3:
+        raise AssertionError(f"E1C acquisition metrics card vs CPU {metric_rel}")
+    return {"worst": worst, "metric_rel": metric_rel, "cpu_s": acq_s + track_s}
+
+
+def time_e1c_viterbi(dev: torch.device, run: dict) -> dict:
+    """Phase 62: both Viterbi kernels at the E1C gate's I/NAV shape (T 120,
+    the parts of one SV's decode as lanes) bit for bit against their plain
+    versions, timed queued behind a sleeping stream (device time) beside
+    their bounds; the plain versions by CUDA events."""
+    constraint, polys = 7, convolutional.K7_POLYS
+    lanes = max(run["lanes"])
+    bm = inav_branch_metrics(lanes, 57, dev)
+    errs = check_viterbi(bm, constraint, polys)
+    dec, _ = viterbi.viterbi_forward_cuda(bm, constraint, polys)
+    fwd = in_turns(lambda: viterbi.viterbi_forward(bm, constraint, polys),
+                   lambda: viterbi.viterbi_forward_cuda(bm, constraint, polys), queued_ms)
+    tb = in_turns(lambda: viterbi.viterbi_traceback(dec, constraint, polys),
+                  lambda: viterbi.viterbi_traceback_cuda(dec, constraint, polys), queued_ms)
+    table = {}
+    for name, (kern, plain), (b_ms, b_by), err, shape in (
+            ("viterbi_forward", fwd, forward_bound(bm, dec, constraint),
+             errs["forward_abs_err"], bm.shape),
+            ("viterbi_traceback", tb, traceback_bounds(dec)[0], errs["traceback_abs_err"],
+             dec.shape)):
+        table[name] = {"ms_e1c": sum(kern) / 2, "plain_ms_e1c": sum(plain) / 2,
+                       "bound_ms_e1c": b_ms, "bound_by_e1c": b_by, "library_ms_e1c": None,
+                       "max_abs_err_e1c": err, "shape_e1c": list(shape),
+                       "launches_e1c_gate": run["launches"][name]}
+        phase("62 e1c viterbi", f"{name} at {tuple(shape)} (an E1C gate SV's I/NAV parts, "
+              f"lanes % 4 = {lanes % 4}): equal to the plain version bit for bit; kernel "
+              f"{kern[0]:.6f}/{kern[1]:.6f} ms, plain {plain[0]:.6f}/{plain[1]:.6f} ms (both "
+              f"queued, mean of {TIMED_LAUNCHES}); bound {b_ms:.7f} ms by {b_by}, "
+              f"{100 * b_ms / table[name]['ms_e1c']:.3g}% of it; launches "
+              f"{run['launches'][name]} in the gate")
+    return table
+
+
+def drive_rf_scene(dev: torch.device) -> dict:
+    """Phase 61: `rf_scene_gate()` at full width (1 s at 30.72 MS/s in blocks
+    of 2^20: five emitters, the loopback simulator's AWGN, the attenuator,
+    a triggered 2^16 + 2^23 capture saved as SigMF and replayed, tags,
+    PDUs, the BFSK decode, metrics over HTTP, config) with the counts set to
+    0 just before it and read just after (fir_decimate 2: the decode's two
+    stages; no other hand-written kernel), every bar; then warm; one warm
+    chain under the profiler; the FIR at the decode's two shapes against
+    its plain version, timed queued beside conv1d and its bound; then the
+    whole scene on the CPU against the card (bars, tags, trigger, payload,
+    tone peaks equal; the capture's IQ within SCENE_IQ_TOL of its peak)."""
+    sg = scene_gates
+    zero_launch_counts()
+    gate = rf_scene_gate(dev)
+    counts = fm_counts()
+    b = gate["bars"]
+    tones = {k: {"peak_hz": v["peak_hz"], "err_hz": round(v["err_hz"], 4),
+                 "doppler_hz": round(v["doppler_hz"], 4)} for k, v in gate["tones"].items()}
+    phase("61 rf scene", f"{gate['samples']} samples at {sg.RATE_HZ / 1e6} MS/s on {dev}: "
+          f"bars {json.dumps(b)}; tones {json.dumps(tones)}, ratio {gate['ratio_db']:.4f} dB "
+          f"(predicted {gate['want_ratio_db']:.4f}); trigger block {gate['trigger_block']}, "
+          f"jammer tags {gate['jammer']['tags']} ratio {gate['jammer']['ratio']:.2f}; payload "
+          f"{gate['payload']['payload']!r}; capture {gate['capture_samples']} samples; stage s "
+          f"{json.dumps({k: round(v, 4) for k, v in gate['stage_s'].items()})}; first run "
+          f"{gate['seconds']:.4f} s; launches {json.dumps(counts)}")
+    if not gate["ok"]:
+        raise AssertionError(f"the RF scene gate failed its bars {b}")
+    want = {**dict.fromkeys(counts, 0), "fir_decimate": len(sg.DDC_STAGES)}
+    if counts != want:
+        raise AssertionError(f"the RF scene gate launched {counts}, want {want}")
+    warm = rf_scene_gate(dev)
+    phase("61 rf scene warm", f"again: {warm['seconds']:.4f} s (first {gate['seconds']:.4f} s), "
+          f"stage s {json.dumps({k: round(v, 4) for k, v in warm['stage_s'].items()})}; bars "
+          f"{json.dumps(warm['bars'])}")
+    if not warm["ok"]:
+        raise AssertionError(f"the RF scene gate failed warm: {warm['bars']}")
+    # the scene's noise: threefry on the card (its bits equal the host's numpy)
+    block = 1 << 20
+    key = threefry.fold_in(threefry.key(21), 0)
+    bits_equal = torch.equal(threefry.random_bits_tensor(key, 2 * block, dev).cpu(),
+                             torch.from_numpy(threefry.random_bits(key, 2 * block)
+                                              .astype(np.int64)))
+    _, normal_rel = rel_err(threefry.normal_tensor(key, (2, block), dev).cpu(),
+                            torch.from_numpy(threefry.normal(key, (2, block))))
+    draw_ms = cuda_ms(lambda: threefry.normal_tensor(key, (2, block), dev))
+    numpy_ms = host_ms(lambda: threefry.normal(key, (2, block)))
+    phase("61 threefry", f"(2, 2^20) normals a block: bits equal to numpy's {bits_equal}, "
+          f"normals max|Δ|/max {normal_rel:.3g}; {draw_ms:.4f} ms on the card (CUDA events, "
+          f"mean of {TIMED_LAUNCHES}), {numpy_ms:.1f} ms in numpy on the host")
+    if not (bits_equal and normal_rel < 1e-6):
+        raise AssertionError(f"threefry on the card: bits {bits_equal}, normals {normal_rel}")
+    settings = r4w_config.R4wConfig.from_dict(sg.PROFILE).with_profile("scene")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = breakdown(lambda: sg.run_chain(sg.scene(device=dev), settings, tmp,
+                                              MetricsRegistry()), warm=False)
+    phase("61 rf scene profile", f"one warm chain (engine, simulator, attenuator, capture and "
+          f"its SigMF save; no analysis) under the profiler: {prof['device_events']} launches, "
+          f"busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, idle share "
+          f"{prof['idle_share']:.4f}; largest " + json.dumps(prof["top_ms"]))
+    # the hand kernel at the shapes the decode gives it
+    off, length = gate["payload"]["window"]
+    x = gate["capture"][off:off + length][None, :].contiguous()
+    timing = {}
+    rate = sg.RATE_HZ
+    for (factor, k, cutoff), key in zip(sg.DDC_STAGES, ("scene_ddc", "scene_symbol")):
+        taps = torch.from_numpy(filters.design_lowpass(k, cutoff, rate)).to(dev)
+        timing.update(time_fir_shape(x, taps, factor, key, f"61 rf scene fir {key}", queued_ms))
+        x = fir.fir_decimate_cuda(x, taps.flip(0), factor, zero_state=True)
+        rate /= factor
+    t0 = time.perf_counter()
+    cpu = rf_scene_gate("cpu")
+    cpu_s = time.perf_counter() - t0
+    same = {k: gate[k] == cpu[k] for k in ("bars", "trigger_block", "payload")}
+    same["jammer_tags"] = gate["jammer"]["tags"] == cpu["jammer"]["tags"]
+    same["tone_peaks"] = all(gate["tones"][k]["peak_hz"] == cpu["tones"][k]["peak_hz"]
+                             for k in gate["tones"])
+    _, iq_rel = rel_err(gate["capture"].cpu(), cpu["capture"])
+    ratio_delta = abs(gate["ratio_db"] - cpu["ratio_db"])
+    phase("61 rf scene card vs cpu", f"the whole scene on the CPU ({cpu_s:.2f} s on the host): "
+          f"{json.dumps(same)}; capture IQ max|Δ|/max|CPU| {iq_rel:.3g} (< {SCENE_IQ_TOL}); "
+          f"tone ratio |Δ| {ratio_delta:.3g} dB")
+    if not (all(same.values()) and iq_rel < SCENE_IQ_TOL):
+        raise AssertionError(f"the RF scene card vs CPU: {same}, IQ {iq_rel}")
+    return {"launches": counts, "seconds": gate["seconds"], "warm_s": warm["seconds"],
+            "stage_s": gate["stage_s"], "cpu_s": cpu_s, "iq_rel": iq_rel, "profile": prof,
+            "timing": timing, "threefry_ms": draw_ms, "threefry_numpy_ms": numpy_ms}
 
 
 def main() -> None:
@@ -4061,6 +4346,17 @@ def main() -> None:
     hop_timing = time_hop_kernels(dev, hop_run)
     del hop_run["inputs"]
 
+    # The Galileo E1C pilot chain and the host layer's data plane: the 8-SV
+    # pilot gate at full width with the counts set to 0 just before it and
+    # read just after (each Viterbi kernel once an SV), warm, profiled and
+    # card against CPU; the 30.72 MS/s RF scene through the loopback SDR into
+    # a triggered SigMF capture and its replay (fir_decimate twice), warm and
+    # card against CPU; the Viterbi kernels at the E1C I/NAV shape.
+    e1c_run = drive_e1c_gate(dev)
+    check_e1c_card_against_cpu(dev, e1c_run)
+    scene_run = drive_rf_scene(dev)
+    e1c_timing = time_e1c_viterbi(dev, e1c_run)
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -4094,6 +4390,8 @@ def main() -> None:
         "launches_dispatch_gate": dispatch_run["launches"]["dechirp_power"],
         "launches_infra_blocks_gate": infra_run["launches"]["dechirp_power"],
         "launches_hop_gate": hop_run["launches"]["dechirp_power"],
+        "launches_e1c_gate": e1c_run["launches"]["dechirp_power"],
+        "launches_rf_scene_gate": scene_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
     }]
@@ -4124,6 +4422,8 @@ def main() -> None:
             "launches_dispatch_gate": dispatch_run["launches"][name],
             "launches_infra_blocks_gate": infra_run["launches"][name],
             "launches_hop_gate": hop_run["launches"][name],
+            **e1c_timing[name],
+            "launches_rf_scene_gate": scene_run["launches"][name],
             "library_ms": None,
             "library_ms_receiver": None,
             "library_ms_packet": None,
@@ -4156,6 +4456,9 @@ def main() -> None:
         "launches_hop_gate_by_stage": {k: v["fir_decimate"] for k, v in
                                        hop_run["launches_by_stage"].items()},
         **hop_timing["fir_decimate"],
+        "launches_e1c_gate": e1c_run["launches"]["fir_decimate"],
+        "launches_rf_scene_gate": scene_run["launches"]["fir_decimate"],
+        **scene_run["timing"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -4179,6 +4482,8 @@ def main() -> None:
         "launches_hop_gate_by_stage": {k: v["nco_mix"] for k, v in
                                        hop_run["launches_by_stage"].items()},
         **hop_timing["nco_mix"],
+        "launches_e1c_gate": e1c_run["launches"]["nco_mix"],
+        "launches_rf_scene_gate": scene_run["launches"]["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
@@ -4200,6 +4505,8 @@ def main() -> None:
         **dispatch_timing["first_order_iir"],
         "launches_infra_blocks_gate": infra_run["launches"]["first_order_iir"],
         "launches_hop_gate": hop_run["launches"]["first_order_iir"],
+        "launches_e1c_gate": e1c_run["launches"]["first_order_iir"],
+        "launches_rf_scene_gate": scene_run["launches"]["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,10 +50,13 @@ def normal(shape, *, key=None, generator: torch.Generator | None = None,
            device=None) -> torch.Tensor:
     """Standard normal float32 draws of `shape` on `draw_device(generator,
     device)`: the reference's ``jax.random.normal(key, shape)`` for a
-    threefry `key`, else Philox."""
+    threefry `key` (made in numpy for the CPU, on the device itself for a
+    card: the same bits, `threefry.normal_tensor`), else Philox."""
     check_source(key, generator)
     device = draw_device(generator, device)
     if key is not None:
+        if device.type != "cpu":
+            return threefry.normal_tensor(key, tuple(shape), device)
         return torch.from_numpy(threefry.normal(key, tuple(shape))).to(device)
     return torch.randn(tuple(shape), generator=generator, dtype=REAL_DTYPE, device=device)
 

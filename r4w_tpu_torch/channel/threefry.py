@@ -17,6 +17,7 @@ Everything runs on the host; callers move the draws to their device.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -128,3 +129,76 @@ def randint(k: tuple[int, int], shape, minval: int, maxval: int) -> np.ndarray:
 def bernoulli(k: tuple[int, int], p: float, shape) -> np.ndarray:
     """``jax.random.bernoulli(k, p, shape)``: a float32 uniform below p."""
     return uniform(k, shape) < np.float32(p)
+
+
+def fold_in(k: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(k, data)`` for 32-bit data: threefry of the
+    counter (0, data)."""
+    y0, y1 = threefry2x32(k, np.zeros(1, np.uint32), np.asarray([int(data) & 0xFFFFFFFF],
+                                                                 np.uint32))
+    return int(y0[0]), int(y1[0])
+
+
+# The same draws as tensors on any device: the words are uint32 values held in
+# int64 and masked to 32 bits after every add and shift, so the bits equal the
+# numpy version's on every device. Nothing here reads a tensor on the host.
+_MASK = 0xFFFFFFFF
+
+
+def _rotl_tensor(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) & _MASK) | (x >> (32 - d))
+
+
+def threefry2x32_tensor(key: tuple[int, int], x0: torch.Tensor, x1: torch.Tensor):
+    """`threefry2x32` on int64 tensors holding uint32 words."""
+    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl_tensor(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _MASK
+    return x0, x1
+
+
+def random_bits_tensor(k: tuple[int, int], n: int, device) -> torch.Tensor:
+    """`random_bits` as an int64 tensor of uint32 words on `device`."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32_tensor(k, idx >> 32, idx & _MASK)
+    return y0 ^ y1
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """float32 in [0, 1) from the top 23 bits of each word, as `uniform`."""
+    as_int32 = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return as_int32.view(torch.float32) - 1.0
+
+
+def erfinv_tensor(x: torch.Tensor) -> torch.Tensor:
+    """`erfinv` on a float32 tensor: the same roundings (log1p and the
+    polynomial's fused steps in float64, rounded once each; the square root
+    in float64, so it is correctly rounded on every device)."""
+    w = (-torch.log1p((-x * x).double())).float()
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0).double()
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0]).to(torch.float32)
+    for c_small, c_large in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, float(np.float32(c_small)), float(np.float32(c_large)))
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1, x * float("inf"), p * x)
+
+
+def normal_tensor(k: tuple[int, int], shape, device) -> torch.Tensor:
+    """`normal` (``jax.random.normal(k, shape, float32)``) made on `device`:
+    the bits equal the numpy version's; the normals too but where float64
+    log1p of the device's library and the host's round to different
+    float32 values (rare)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    f = _unit_floats(random_bits_tensor(k, n, device))
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    span = float(np.float32(1.0) - np.float32(lo))
+    u = torch.clamp_min(f * span + lo, lo)
+    return (float(np.float32(np.sqrt(2))) * erfinv_tensor(u)).reshape(tuple(shape))

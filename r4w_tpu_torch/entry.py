@@ -87,8 +87,16 @@ the hop synthesiser, AWGN, a loopback TCP sample link, the indexed
 recorder with timestamps, de-hopping, two decimating filters and the
 demodulator), and `infra_blocks_gate(device)` runs the navigation,
 biomedical, infrastructure, timing and waveform-spec blocks card against
-CPU; both live in `hop_gates` and are re-exported here. Every entry point
-runs on the CUDA card unless the caller names another device.
+CPU; both live in `hop_gates` and are re-exported here.
+`e1c_pilot_gate(device)` is the counterpart of ``tools/e1c_tracking.py``'s
+8-SV gate: Galileo E1C pilots at C/N0 34 dB-Hz acquired and handed to
+overlay-wiped pilot loops over 200 ms, then E1B I/NAV pages decoded off the
+pilot loops over 4.35 s (`gnss.e1c_tracking`, re-exported here).
+`rf_scene_gate(device)` runs one second of a 30.72 MS/s multi-emitter RF
+scene through the loopback SDR into a triggered SigMF capture and its
+replay, with stream tags, metrics and configuration (`scene_gates`,
+re-exported here). Every entry point runs on the CUDA card unless the
+caller names another device.
 """
 
 from __future__ import annotations
@@ -117,6 +125,8 @@ from r4w_tpu_torch.radar_gates import array_blocks_gate, array_radar_gate  # noq
 from r4w_tpu_torch.cognitive_gates import sensing_blocks_gate, spectrum_access_gate  # noqa: F401
 from r4w_tpu_torch.dispatch_gates import dispatch_monitor_gate, protocol_blocks_gate  # noqa: F401
 from r4w_tpu_torch.hop_gates import hopping_link_gate, infra_blocks_gate  # noqa: F401
+from r4w_tpu_torch.gnss.e1c_tracking import e1c_pilot_gate  # noqa: F401
+from r4w_tpu_torch.scene_gates import rf_scene_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

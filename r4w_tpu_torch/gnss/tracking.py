@@ -113,7 +113,7 @@ def init_state(cfg: TrackingConfig, code_phase_chips, doppler_hz, device=None
 
 
 def track(cfg: TrackingConfig, state: TrackingState, samples, code,
-          aux_code=None, aux_per_block: int = 1, start=None
+          aux_code=None, aux_per_block: int = 1, start=None, wipe=None
           ) -> tuple[TrackingState, TrackingOutput]:
     """Run the tracking loop over whole blocks of `samples`.
 
@@ -130,6 +130,12 @@ def track(cfg: TrackingConfig, state: TrackingState, samples, code,
     code_length), correlated open-loop at the prompt's chip and carrier
     alignment (the data-channel companion of a pilot loop); each block
     yields `aux_per_block` sub-prompts over equal sample spans.
+
+    wipe: optional (C, B', k) signs (or any real weights): block m of
+    channel c is split into k equal spans and span j multiplied by
+    wipe[c, m, j] before the loop reads it (the E1C pilot pass's input
+    wipe of the secondary code, one sign a 4 ms epoch), as if the capture
+    had been multiplied first; B' ≥ the blocks tracked.
 
     Returns the final state and the per-block outputs, (C, B) each (aux
     (C, B, aux_per_block)), or (B,) and (B, aux_per_block) when the state,
@@ -164,11 +170,19 @@ def track(cfg: TrackingConfig, state: TrackingState, samples, code,
     else:
         n_blocks = samples.shape[-1] // bs
         blocks = samples[..., : n_blocks * bs].reshape(-1, n_blocks, bs).expand(n_ch, -1, -1)
+    if wipe is not None:
+        wipe = to_tensor(wipe, REAL_DTYPE, device)
+        if wipe.shape[1] < n_blocks or bs % wipe.shape[2]:
+            raise ValueError(f"wipe {tuple(wipe.shape)} does not cover {n_blocks} blocks of {bs}")
+        wipe = wipe.expand(n_ch, -1, -1)
     record = torch.empty((n_blocks, n_ch, len(_BLOCK_FIELDS)), dtype=REAL_DTYPE, device=device)
     aux_record = torch.zeros((n_blocks, n_ch, aux_per_block), dtype=IQ_DTYPE, device=device)
     step = _Step(cfg, code, aux, aux_per_block, i_idx)
     for m in range(n_blocks):
         block = blocks[:, m] if blocks is not None else samples[window + m * bs]
+        if wipe is not None:
+            k = wipe.shape[2]
+            block = (block.reshape(n_ch, k, bs // k) * wipe[:, m, :, None]).reshape(n_ch, bs)
         st = step(st, block, record[m], aux_record[m])
     outs = {name: record[..., j].T.contiguous() for j, name in enumerate(_BLOCK_FIELDS)}
     aux_out = aux_record.permute(1, 0, 2)

@@ -230,6 +230,14 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.ops.navigation, r4w_tpu_torch.ops.biomedical\n"
             "import r4w_tpu_torch.ops.infra_fills, r4w_tpu_torch.timing\n"
             "import r4w_tpu_torch.waveform_spec, r4w_tpu_torch.hop_gates\n"
+            "import r4w_tpu_torch.gnss.e1c_common, r4w_tpu_torch.gnss.e1c_tracking\n"
+            "import r4w_tpu_torch.io, r4w_tpu_torch.io.iqformat, r4w_tpu_torch.io.sigmf\n"
+            "import r4w_tpu_torch.observe, r4w_tpu_torch.observe.logging\n"
+            "import r4w_tpu_torch.observe.metrics, r4w_tpu_torch.observe.capture\n"
+            "import r4w_tpu_torch.config, r4w_tpu_torch.streams, r4w_tpu_torch.sim\n"
+            "import r4w_tpu_torch.sim.scenario, r4w_tpu_torch.sim.hal\n"
+            "import r4w_tpu_torch.scene_gates\n"
+            "assert 'yaml' not in sys.modules\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
