@@ -203,7 +203,25 @@ under the profiler, the FIR at the decode's two shapes against its plain
 version (timed beside conv1d and its bound), and the whole scene on the CPU
 against the card's; phase 62 holds both Viterbi kernels at
 an SV's I/NAV parts against their plain versions bit for bit and times
-them. Each phase prints at least one line; a failed phase raises,
+them. Then the block registry, the block-graph pipeline and the remote-lab
+host layer: phase 63 builds the native iqcore runtime (g++) from the
+checkout and checks its conversions against their plain versions; phase 64
+runs ``remote_lab_gate()`` (an agent on 127.0.0.1 streams a 255-byte
+LoRa-SF7 packet over UDP into the native receiver, bit for bit and decoded
+on the card equal to the CPU's decode; then the reference's 5 s
+``BenchmarkReceiver.run`` on an unpaced stream, at least 1.0 Msps
+demodulated), with the counts set to 0 just before it and read just after
+(the dechirp kernel once a batch), and profiles ten warm batches; phase 65 runs
+``block_graph_gate()`` (the pipeline wizard's graph at a full LoRa packet:
+dechirp, first_order_iir and fir_decimate each launched), warm, profiled,
+and its report against a CPU run's; phase 66 resolves the 523 registry
+blocks on the card with every schema, paints `hopping_link_gate`'s link as a
+``SampleSchedule`` (250 hops, 20.48 M samples) card against CPU, holds
+``TorchAccelerator`` at 2^20 against ``SimulatedAccelerator`` and builds,
+loads and round-trips the example C-ABI plugin; phase 67 holds the three
+kernels against their plain versions at the shapes these two gates give
+them and times them beside cuFFT's transform and conv1d. Each phase prints
+at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
 
@@ -282,6 +300,14 @@ from r4w_tpu_torch.waveforms import linear_mod, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms import stanag4285 as stanag
 from r4w_tpu_torch.waveforms.lora import chirp, sync
+from r4w_tpu_torch.waveforms.lora import modem as lora_modem
+from r4w_tpu_torch import accel as r4w_accel
+from r4w_tpu_torch import native as r4w_native
+from r4w_tpu_torch import remote_gates
+from r4w_tpu_torch.benchmark import WaveformRunner
+from r4w_tpu_torch.pipeline import run_pipeline
+from r4w_tpu_torch.registry import PluginManager, default_registry
+from r4w_tpu_torch.waveforms import base as waveform_base
 
 REL_TOL = 1e-4  # max|kernel - plain| / max(plain), the JAX package's own bar
 WATERFALL_BARS_DB = {"sf7": -8.0, "sf8": -12.0, "sf9": -14.0, "sf10": -16.0,
@@ -421,6 +447,14 @@ HOP_NCO_ROWS = 8           # phase 56's rotator rows, the most dwells of one cha
 # CPU against JAX with the same tolerances)
 E1C_LOCK_TOL, E1C_CN0_TOL_DB, E1C_DOP_TOL_HZ, E1C_JUMP_TOL = 0.005, 0.5, 0.05, 0.01
 SCENE_IQ_TOL = 1e-5        # max|card - CPU| / max|CPU| of the capture: cos/sin and sums an ulp apart
+ACCEL_SAMPLES = 1 << 20    # phase 66's accelerator inputs
+ACCEL_TAPS = 64
+ACCEL_REL_TOL = 1e-3       # max|card - sim| / max|sim|, tests/test_infra_fills.py:167-185
+REGISTRY_COUNTS = {"filter": 47, "resampler": 10, "sync": 33, "channel": 12, "measurement": 119,
+                   "source": 19, "radar": 42, "math": 97, "modulator": 80, "sink": 19, "fec": 14,
+                   "gnss": 6, "demodulator": 25}  # the reference's default_registry()
+GRAPH_LAUNCHES = ("dechirp_power", "first_order_iir", "fir_decimate")  # rx, flt, dec
+PROFILED_BATCHES = 10      # phase 64's warm batches under the profiler: one records no events
 RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
                         "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
                         "r4w_tpu/ops/filters2.py:454", "r4w_tpu/ops/stream_blocks.py:53",
@@ -4042,6 +4076,288 @@ def drive_rf_scene(dev: torch.device) -> dict:
             "timing": timing, "threefry_ms": draw_ms, "threefry_numpy_ms": numpy_ms}
 
 
+def build_native_runtime() -> dict:
+    """Phase 63: the native iqcore runtime built with g++ from the checkout
+    (into build/, at first use), its conversions against their plain
+    versions."""
+    t0 = time.perf_counter()
+    if not r4w_native.native_available():
+        raise AssertionError(f"the native runtime did not build: {r4w_native.build_error()}")
+    build_s = time.perf_counter() - t0
+    x = np.random.default_rng(63).uniform(-1.2, 1.2, 1 << 16).astype(np.float32)
+    native = {name: getattr(r4w_native, name)(x) for name in ("f32_to_i8", "f32_to_u8")}
+    get_lib = r4w_native.get_lib
+    r4w_native.get_lib = lambda: None
+    try:
+        plain = {name: getattr(r4w_native, name)(x) for name in native}
+    finally:
+        r4w_native.get_lib = get_lib
+    same = {name: bool(np.array_equal(native[name], plain[name])) for name in native}
+    phase("63 native", f"{r4w_native.library_path().name} built and loaded in {build_s:.2f} s; "
+          f"i8/u8 conversions of 2^16 floats equal their plain versions {json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError(f"native conversions differ from the plain versions: {same}")
+    return {"build_s": build_s}
+
+
+def drive_remote_lab(dev: torch.device) -> dict:
+    """Phase 64: `remote_lab_gate()` at full width (the 255-byte LoRa-SF7
+    packet, then the reference's 5 s run on an unpaced stream), with the
+    counts set to 0 just before it and read just after (the dechirp kernel
+    once a demodulated batch, no other), every bar; the dechirp shapes the
+    demodulator gave the kernel; ten warm batches of 2^16 samples under the
+    profiler."""
+    zero_launch_counts()
+    with CallSpy(lora_modem, "dechirp_power_dispatch") as spy:
+        gate = remote_gates.remote_lab_gate(dev)
+    counts = fm_counts()
+    b, one, run = gate["bars"], gate["packet"], gate["run"]
+    hist = run["histogram_s"]
+    phase("64 remote lab", f"on {dev}: bars {json.dumps(b)}; control plane "
+          f"{json.dumps(gate['control']['ok'])}; packet {one['samples']} samples of "
+          f"{one['burst_samples']} in {one['packets']} datagrams, seq gaps {one['seq_gaps']}, "
+          f"decoded {one['decoded'][:16]!r}..., first batch {one['first_batch_s']:.4f} s")
+    phase("64 remote lab run", f"{run['elapsed_s']:.3f} s: demodulated {run['msps']:.3f} Msps "
+          f"(bar {remote_gates.MIN_MSPS}), offered {run['offered_msps']:.3f} Msps; "
+          f"{run['batches']} batches, {run['samples']} samples; packets {run['packets']}, "
+          f"seq gaps {run['seq_gaps']} (packets_dropped {run['packets_dropped']}), overrun "
+          f"floats {run['overrun_floats']}; latency ms {json.dumps(run['latency_ms'])}; "
+          f"histogram p50/p99/p999 {1e3 * hist['p50_s']:.4f}/{1e3 * hist['p99_s']:.4f}/"
+          f"{1e3 * hist['p999_s']:.4f} ms; launches {json.dumps(counts)}")
+    if not gate["ok"]:
+        raise AssertionError(f"the remote-lab gate failed its bars {b}")
+    batches = run["batches"] + 1  # and phase 1's packet; its CPU decode launches nothing
+    want = {**dict.fromkeys(counts, 0), "dechirp_power": batches}
+    if (counts != want or spy.launches["dechirp_power"] != batches
+            or len(spy.shapes) != batches + 1):
+        raise AssertionError(f"the remote-lab gate launched {counts} ({spy.launches} in the "
+                             f"demodulator) in {len(spy.shapes)} demodulations, want {want}")
+    shapes = sorted(set(spy.shapes), key=spy.shapes.count, reverse=True)
+    runner = WaveformRunner(remote_gates.WAVEFORM, remote_gates.RATE_HZ, dev)
+
+    def batches():
+        for _ in range(PROFILED_BATCHES):
+            runner.process(gate["batch"])
+
+    prof = breakdown(batches)
+    phase("64 remote lab profile", f"{PROFILED_BATCHES} warm batches of {gate['batch'].shape[0]} "
+          f"samples (each: upload, demodulation, the bits read back) under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          f"{json.dumps(prof['top_ms'])}; dechirp shapes {shapes[:3]}")
+    return {"launches": counts, "run": run, "packet": {k: v for k, v in one.items()
+                                                       if k != "decoded"},
+            "profile": prof, "dechirp_shapes": shapes}
+
+
+def drive_block_graph(dev: torch.device) -> dict:
+    """Phase 65: `block_graph_gate()` at a full LoRa packet with the counts
+    set to 0 just before it and read just after (dechirp, first_order_iir and
+    fir_decimate at least once each, nco_mix and Viterbi none), every bar;
+    warm; one warm graph under the profiler; the card's report against a CPU
+    run's (decisions, shapes, dtypes and errors equal, power within 0.01 dB,
+    previews within 1e-4)."""
+    zero_launch_counts()
+    with CallSpy(lora_modem, "dechirp_power_dispatch") as spy:
+        gate = remote_gates.block_graph_gate(dev)
+    counts = fm_counts()
+    nodes = gate["report"]["nodes"]
+    summary = {k: (v.get("shape"), v.get("dtype"), v.get("error")) for k, v in nodes.items()}
+    phase("65 block graph", f"on {dev}: bars {json.dumps(gate['bars'])}; order "
+          f"{gate['report']['order']}; nodes {json.dumps(summary)}; rx decoded "
+          f"{nodes['rx'].get('decoded_hex')}...; first run {gate['seconds']:.4f} s; launches "
+          f"{json.dumps(counts)}")
+    if not gate["ok"]:
+        raise AssertionError(f"the block-graph gate failed its bars {gate['bars']}")
+    missing = [k for k in GRAPH_LAUNCHES if counts[k] < 1]
+    if missing or counts["nco_mix"] or counts["viterbi_forward"] or counts["viterbi_traceback"]:
+        raise AssertionError(f"the block graph launched {counts}: want each of {GRAPH_LAUNCHES}")
+    warm = remote_gates.block_graph_gate(dev)
+    graph = remote_gates.graph_nodes()
+    prof = breakdown(lambda: run_pipeline(graph, seed=remote_gates.GRAPH_SEED,
+                                          sample_rate=remote_gates.RATE_HZ, device=dev),
+                     warm=False)
+    phase("65 block graph warm", f"again: {warm['seconds']:.4f} s (first {gate['seconds']:.4f} s), "
+          f"bars {json.dumps(warm['bars'])}; one warm graph under the profiler: "
+          f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
+          f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
+          f"{json.dumps(prof['top_ms'])}")
+    if not warm["ok"]:
+        raise AssertionError(f"the block-graph gate failed warm: {warm['bars']}")
+    t0 = time.perf_counter()
+    cpu = remote_gates.block_graph_gate("cpu")
+    cpu_s = time.perf_counter() - t0
+    verdict = remote_gates.compare_reports(gate["report"], cpu["report"])
+    phase("65 block graph card vs cpu", f"the graph on the CPU in {cpu_s:.2f} s: reports equal "
+          f"{verdict['equal']}, worst power |Δ| {verdict['worst_power_db']:.3g} dB (< "
+          f"{remote_gates.POWER_TOL_DB}), worst preview |Δ| {verdict['worst_preview']:.3g} (< "
+          f"{remote_gates.PREVIEW_TOL}) at {verdict['worst_preview_at']}; {verdict['diffs']}")
+    if not (cpu["ok"] and verdict["equal"]):
+        raise AssertionError(f"the block graph card vs CPU: {verdict}")
+    return {"launches": counts, "seconds": gate["seconds"], "warm_s": warm["seconds"],
+            "cpu_s": cpu_s, "profile": prof, "verdict": verdict,
+            "dechirp_shapes": sorted(set(spy.shapes))}
+
+
+def check_host_layer(dev: torch.device) -> dict:
+    """Phase 66: the registry's 523 blocks resolved on the card (each
+    `mod_` waveform on it), every schema built, the reference's category
+    counts; `hopping_link_gate`'s link as a `SampleSchedule` (250 hops, 20.48 M
+    samples, guards painted over the hops) card against CPU; the torch
+    accelerator at 2^20 against the numpy one; the example C-ABI plugin
+    built, loaded and round-tripped on the card."""
+    reg = default_registry()
+    t0 = time.perf_counter()
+    on_card, schemas = 0, 0
+    for info in reg.list():
+        made = info.factory(device=dev)
+        if info.name.startswith("mod_"):
+            if made is None or made.device.type != dev.type:
+                raise AssertionError(f"{info.name} did not resolve on {dev}")
+            on_card += 1
+        schemas += bool(reg.param_schema(info.name))
+    counts = {c.value: n for c, n in reg.categories().items()}
+    phase("66 registry", f"{len(reg.list())} blocks resolved ({on_card} waveforms on {dev}), "
+          f"{schemas} non-empty schemas, in {time.perf_counter() - t0:.2f} s; categories equal "
+          f"the reference's {counts == REGISTRY_COUNTS}")
+    if len(reg.list()) != 523 or counts != REGISTRY_COUNTS:
+        raise AssertionError(f"registry: {len(reg.list())} blocks, {counts}")
+    sched = remote_gates.hop_schedule()
+    n = remote_gates.HOP_COUNT * int(round(remote_gates.HOP_DWELL_S * remote_gates.HOP_RATE_HZ))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = sched.masks(n, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = sched.masks(n, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    phase("66 schedule", f"{len(sched.events)} events (250 hops, 250 guards) over {n} samples at "
+          f"{remote_gates.HOP_RATE_HZ / 1e6} MS/s: masks on {dev} in {card_s:.4f} s, on the CPU "
+          f"in {cpu_s:.4f} s, equal {same}; guard samples {int((card[2] == 3).sum())}")
+    if not same:
+        raise AssertionError("the schedule's masks differ card against CPU")
+    rng = np.random.default_rng(66)
+    x = (rng.standard_normal(ACCEL_SAMPLES) + 1j * rng.standard_normal(ACCEL_SAMPLES)).astype(
+        np.complex64)
+    taps = (rng.standard_normal(ACCEL_TAPS) + 1j * rng.standard_normal(ACCEL_TAPS)).astype(
+        np.complex64)
+    chirp_x = np.exp(1j * np.pi * 1e-6 * np.arange(ACCEL_SAMPLES) ** 2).astype(np.complex64)
+    tacc, sim = r4w_accel.create_accelerator("torch", dev), r4w_accel.create_accelerator("sim")
+    accel_errs = {}
+    for name, args in (("fft", (x,)), ("fir", (x, taps)), ("chirp_correlate", (x, chirp_x))):
+        got = getattr(tacc, name)(*args)
+        want = torch.from_numpy(np.asarray(getattr(sim, name)(*args), np.complex128))
+        if got.device.type != dev.type or tuple(got.shape) != tuple(want.shape):
+            raise AssertionError(f"accelerator {name}: {got.device} {tuple(got.shape)}")
+        accel_errs[name] = rel_err(got.cpu().to(torch.complex128), want)[1]
+    phase("66 accelerator", f"{tacc.capabilities().name}: fft, fir ({ACCEL_TAPS} taps) and "
+          f"chirp_correlate at 2^20 against SimulatedAccelerator, max|Δ|/max "
+          f"{json.dumps(accel_errs)} (< {ACCEL_REL_TOL})")
+    if not all(e < ACCEL_REL_TOL for e in accel_errs.values()):
+        raise AssertionError(f"the torch accelerator differs from the numpy one: {accel_errs}")
+    src = Path(r4w_native.__file__).with_name("example_plugin.cpp")
+    t0 = time.perf_counter()
+    so = r4w_native.build(src, ("-O2", "-shared", "-fPIC"), include=src.parent)
+    saved = dict(waveform_base._REGISTRY), list(waveform_base._CANONICAL)
+    try:
+        pm = PluginManager(search_paths=[str(so.parent)])
+        info = pm.load_native_plugin(str(so))
+        if info is None:
+            raise AssertionError(f"the example plugin did not load: {pm.errors}")
+        wf = create_waveform("manchester-ook", 125_000.0, dev)
+        payload = bytes(range(0, 256, 7))
+        tx = wf.modulate(payload)
+        res = wf.demodulate(tx)
+        ok = (tx.device.type == res.bits.device.type == dev.type
+              and bytes(res.bits.cpu().numpy().astype(np.uint8)) == payload)
+    finally:
+        waveform_base._REGISTRY.clear()
+        waveform_base._REGISTRY.update(saved[0])
+        waveform_base._CANONICAL[:] = saved[1]
+    phase("66 plugin", f"{so.name} built and loaded in {time.perf_counter() - t0:.2f} s: "
+          f"{info.name} {info.waveforms}, {len(payload)} bytes round trip on {dev} {ok}")
+    if not ok:
+        raise AssertionError("the example plugin's round trip failed on the card")
+    return {"schedule_card_s": card_s, "schedule_cpu_s": cpu_s, "accel_rel": accel_errs}
+
+
+def time_dechirp_rows(rows: int, dev: torch.device, key: str, label: str) -> dict:
+    """The dechirp kernel at (rows, 128), a LoRa-SF7 demodulation's shape,
+    against its plain version within 1e-4, kernel and plain queued in
+    turns, cuFFT's transform alone as the library yardstick, beside the
+    bound; keyed ``*_{key}``."""
+    params = lora.LoRaParams(sf=7)
+    k = params.chips_per_symbol
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    syms = torch.randint(0, k, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    x = chirp.symbol_chirps(params, syms) + 0.5 * randn_iq((rows, k), gen)
+    down = chirp.base_downchirp(params, dev)
+    got = dechirp_power_cuda(x, down)
+    abs_err, rel = rel_err(got, dechirp_power(x, down))
+    if not rel < REL_TOL:
+        raise AssertionError(f"dechirp_power at {key} ({rows}, {k}): {rel:.3g}")
+    kern, plain = in_turns(lambda: dechirp_power(x, down), lambda: dechirp_power_cuda(x, down),
+                           queued_ms)
+    mixed = x * down
+    library = queued_ms(lambda: torch.fft.fft(mixed, dim=-1))
+    b_ms, b_by = dechirp_bound(rows, k)
+    phase(label, f"dechirp_power at ({rows}, {k}) device (queued): kernel {kern[0]:.6f}/"
+          f"{kern[1]:.6f} ms, plain {plain[0]:.6f}/{plain[1]:.6f} ms, cuFFT transform alone "
+          f"{library:.6f} ms; bound {b_ms:.6f} ms by {b_by}; max|Δ|/max {rel:.3g}")
+    return {f"ms_{key}": sum(kern) / 2, f"plain_ms_{key}": sum(plain) / 2,
+            f"library_ms_{key}": library, f"bound_ms_{key}": b_ms, f"bound_by_{key}": b_by,
+            f"max_abs_err_{key}": abs_err, f"shape_{key}": [rows, k]}
+
+
+def time_host_layer_kernels(dev: torch.device, lab: dict, graph: dict) -> dict:
+    """Phase 67: the three kernels at the shapes the two gates gave them:
+    dechirp at the remote lab's batch rows and at the packet's (the graph's
+    rx), the FIR at the graph's decimator ((1, 48,288) c64, K = 63, f = 4)
+    beside conv1d, the recursion's linear kind at the graph's DC blocker
+    ((1, 48,288) c64, α 0.995) bit for bit, beside its bytes bound and its
+    serial floor."""
+    out = {"dechirp_power": {}, "fir_decimate": {}, "first_order_iir": {}}
+    batch_rows = lab["dechirp_shapes"][0][0]
+    out["dechirp_power"].update(time_dechirp_rows(batch_rows, dev, "remote_batch",
+                                                  "67 remote lab dechirp"))
+    packet_rows = graph["dechirp_shapes"][0][0]
+    out["dechirp_power"].update(time_dechirp_rows(packet_rows, dev, "graph_packet",
+                                                  "67 block graph dechirp"))
+    n = remote_gates.BURST_SAMPLES
+    gen = torch.Generator(device=dev).manual_seed(67)
+    x = randn_iq((1, n), gen)
+    taps = torch.from_numpy(filters.design_lowpass(*remote_gates.GRAPH_TAPS)).to(dev)
+    out["fir_decimate"].update(time_fir_shape(x, taps, remote_gates.GRAPH_FACTOR, "graph",
+                                              "67 block graph fir", queued_ms))
+    alpha = 0.995
+    u = torch.diff(x, dim=-1, prepend=torch.zeros((1, 1), dtype=x.dtype, device=dev)).contiguous()
+    got = recurrence.first_order_recurrence_cuda(u, "linear", alpha)
+    want = recurrence.first_order_recurrence(u.cpu(), "linear", alpha)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"first_order_iir linear at ({n},) c64 differs from the plain loop "
+                             f"at {int(torch.sum(got.cpu() != want))} samples")
+    ms = [queued_ms(lambda: recurrence.first_order_recurrence_cuda(u, "linear", alpha), 3)
+          for _ in range(2)]
+    u_host = u.cpu()
+    plain = min(host_ms(lambda: recurrence.first_order_recurrence(u_host, "linear", alpha))
+                for _ in range(2))
+    probe = chain_probe(n, "linear", alpha)
+    rec = {"ms_graph": sum(ms) / 2, "plain_ms_graph": plain, "shape_graph": [1, n, "c64"],
+           "bound_ms_graph": 1e3 * 16 * n / HBM_BYTES_PER_S, "bound_by_graph": "bytes",
+           "serial_floor_ms_graph": n * probe["ns_per_step"] * 1e-6,
+           "chain_cycles_per_step_graph": probe["cycles_per_step"], "max_abs_err_graph": 0.0,
+           "library_ms_graph": None}
+    phase("67 block graph recursion", f"first_order_iir linear at the DC blocker's (1, {n}) c64: "
+          f"card = plain bit for bit; kernel {ms[0]:.4f}/{ms[1]:.4f} ms queued, plain step loop "
+          f"(host) {plain:.1f} ms; bytes bound {rec['bound_ms_graph']:.5f} ms, serial floor "
+          f"{rec['serial_floor_ms_graph']:.4f} ms (bare chain {probe['cycles_per_step']:.3f} "
+          f"cycles a step at {probe['sm_mhz']:.0f} MHz)")
+    out["first_order_iir"] = rec
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4357,6 +4673,22 @@ def main() -> None:
     scene_run = drive_rf_scene(dev)
     e1c_timing = time_e1c_viterbi(dev, e1c_run)
 
+    # The block registry, the block-graph pipeline and the remote-lab host
+    # layer: the native runtime built from the checkout; the remote lab
+    # (agent -> UDP -> native receiver -> demodulation on the card) and the
+    # pipeline wizard's graph, each with the counts set to 0 just before it
+    # and read just after (dechirp once a batch; dechirp, first_order_iir and
+    # fir_decimate in the graph); the registry, schedule, accelerator and
+    # plugin on the card; the three kernels at the gates' shapes.
+    build_native_runtime()
+    lab_run = drive_remote_lab(dev)
+    graph_run = drive_block_graph(dev)
+    check_host_layer(dev)
+    host_timing = time_host_layer_kernels(dev, lab_run, graph_run)
+    host_launches = {name: {"launches_remote_lab_gate": lab_run["launches"][name],
+                            "launches_block_graph_gate": graph_run["launches"][name]}
+                     for name in lab_run["launches"]}
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -4394,6 +4726,8 @@ def main() -> None:
         "launches_rf_scene_gate": scene_run["launches"]["dechirp_power"],
         **{f"{key}_sync_sf{sf}": value for sf, row in sync_timing.items()
            for key, value in row.items()},
+        **host_launches["dechirp_power"],
+        **host_timing["dechirp_power"],
     }]
     for name, line, count in (("viterbi_forward", 403, fwd), ("viterbi_traceback", 479, tb)):
         kernels.append({
@@ -4424,6 +4758,7 @@ def main() -> None:
             "launches_hop_gate": hop_run["launches"][name],
             **e1c_timing[name],
             "launches_rf_scene_gate": scene_run["launches"][name],
+            **host_launches[name],
             "library_ms": None,
             "library_ms_receiver": None,
             "library_ms_packet": None,
@@ -4459,6 +4794,8 @@ def main() -> None:
         "launches_e1c_gate": e1c_run["launches"]["fir_decimate"],
         "launches_rf_scene_gate": scene_run["launches"]["fir_decimate"],
         **scene_run["timing"],
+        **host_launches["fir_decimate"],
+        **host_timing["fir_decimate"],
     })
     kernels.append({
         "name": "nco_mix",
@@ -4484,6 +4821,7 @@ def main() -> None:
         **hop_timing["nco_mix"],
         "launches_e1c_gate": e1c_run["launches"]["nco_mix"],
         "launches_rf_scene_gate": scene_run["launches"]["nco_mix"],
+        **host_launches["nco_mix"],
     })
     kernels.append({
         "name": "first_order_iir",
@@ -4507,6 +4845,8 @@ def main() -> None:
         "launches_hop_gate": hop_run["launches"]["first_order_iir"],
         "launches_e1c_gate": e1c_run["launches"]["first_order_iir"],
         "launches_rf_scene_gate": scene_run["launches"]["first_order_iir"],
+        **host_launches["first_order_iir"],
+        **host_timing["first_order_iir"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -127,6 +127,7 @@ from r4w_tpu_torch.dispatch_gates import dispatch_monitor_gate, protocol_blocks_
 from r4w_tpu_torch.hop_gates import hopping_link_gate, infra_blocks_gate  # noqa: F401
 from r4w_tpu_torch.gnss.e1c_tracking import e1c_pilot_gate  # noqa: F401
 from r4w_tpu_torch.scene_gates import rf_scene_gate  # noqa: F401
+from r4w_tpu_torch.remote_gates import block_graph_gate, remote_lab_gate  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

@@ -237,6 +237,12 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.config, r4w_tpu_torch.streams, r4w_tpu_torch.sim\n"
             "import r4w_tpu_torch.sim.scenario, r4w_tpu_torch.sim.hal\n"
             "import r4w_tpu_torch.scene_gates\n"
+            "import r4w_tpu_torch.native, r4w_tpu_torch.rt, r4w_tpu_torch.net\n"
+            "import r4w_tpu_torch.benchmark, r4w_tpu_torch.agent, r4w_tpu_torch.scheduler\n"
+            "import r4w_tpu_torch.accel, r4w_tpu_torch.block_schema, r4w_tpu_torch.registry\n"
+            "import r4w_tpu_torch.waveforms.native_plugin, r4w_tpu_torch.prelude\n"
+            "import r4w_tpu_torch.pipeline, r4w_tpu_torch.remote_gates\n"
+            "assert len(r4w_tpu_torch.registry.default_registry().list()) == 523\n"
             "assert 'yaml' not in sys.modules\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -246,3 +252,50 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+class TestAliases:
+    """tests/test_infra_fills.py's TestAliases on the port's registry."""
+
+    def test_all_alias_blocks_resolve(self):
+        from r4w_tpu_torch.registry import default_registry
+
+        reg = default_registry()
+        for name in ("cross_ambiguity_function", "iq_balance", "linear_equalizer",
+                     "ml_sequence_detector", "noise_reduction", "phase_noise_model",
+                     "power_amplifier_dpd", "tapped_delay_line", "fmcw_radar"):
+            info = reg.get(name)
+            assert info is not None, name
+            assert ".rs" in info.description
+            assert info.factory(device="cpu") is not None
+
+
+class TestPreludeAccel:
+    """tests/test_infra_fills.py's TestPreludeAccel on the port."""
+
+    def test_prelude_star_import(self):
+        ns = {}
+        exec("from r4w_tpu_torch.prelude import *", ns)
+        assert "create_waveform" in ns and "awgn" in ns
+        assert ns["create_waveform"]("bpsk", 48000.0, "cpu") is not None
+        x = ns["to_device"](np.arange(4, dtype=np.float32), "cpu")
+        assert x.device.type == "cpu" and np.array_equal(ns["to_host"](x), np.arange(4))
+        import r4w_tpu.prelude as ref_prelude
+        assert sorted(ns) == sorted(["__builtins__", *ref_prelude.__all__])
+
+    def test_accelerator_backends_agree(self):
+        from r4w_tpu_torch.accel import create_accelerator
+
+        rng = np.random.default_rng(2)
+        x = (rng.standard_normal(256) + 1j * rng.standard_normal(256)).astype(np.complex64)
+        taps = (rng.standard_normal(16)).astype(np.complex64)
+        sim = create_accelerator("sim")
+        tx = create_accelerator("torch", device="cpu")
+        assert sim.capabilities().name == "sim"
+        assert tx.capabilities().supports_fft
+        np.testing.assert_allclose(tx.fft(x).numpy(), sim.fft(x), atol=1e-3)
+        np.testing.assert_allclose(tx.fir(x, taps).numpy()[:64], sim.fir(x, taps)[:64],
+                                   atol=1e-3)
+        chirp = np.exp(1j * np.pi * 0.01 * np.arange(256) ** 2).astype(np.complex64)
+        np.testing.assert_allclose(tx.chirp_correlate(x, chirp).numpy(),
+                                   sim.chirp_correlate(x, chirp), atol=1e-3)
