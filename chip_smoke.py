@@ -220,7 +220,29 @@ blocks on the card with every schema, paints `hopping_link_gate`'s link as a
 ``TorchAccelerator`` at 2^20 against ``SimulatedAccelerator`` and builds,
 loads and round-trips the example C-ABI plugin; phase 67 holds the three
 kernels against their plain versions at the shapes these two gates give
-them and times them beside cuFFT's transform and conv1d. Each phase prints
+them and times them beside cuFFT's transform and conv1d. Then the LoRa
+mesh, the C API, the sandbox and the figures: phase 68 runs every registry
+block and the pipeline's demodulator through ``run_pipeline`` with its
+schema's defaults on the card (the counts set to 0 just before it and read
+just after) and on the CPU, the erring blocks and their causes equal and
+every other block's shape, dtype and power (0.01 dB) equal; phase 69 runs
+``mesh_lora_gate()`` (16 Meshtastic nodes on a 4 × 4 grid, LongFast SF11 at
+250 kHz, texts, ACKs, a position, a telemetry and a traceroute flooding
+over the LoRa PHY, each round's frames modulated, put through AWGN at their
+links' SNRs and demodulated as one batch) with the counts set to 0 just
+before it and read just after (every bar; dechirp once a round), warm, and
+its busiest round under the profiler; phase 70 runs the gate on the CPU
+against the card's (every delivery, status and inbox) and times dechirp at
+the busiest round's SF11 shape against its plain version and cuFFT; phase
+71 builds the C API from the checkout's byte copies and holds its
+modulators, demodulators, FFT and chirps against the port's on the card
+and runs ``examples/11_capi_demo.c``; phase 72 runs the sandbox's levels
+under this CUDA process (a child that touches the card errs within its
+timeout, the parent's card still launches); phase 73 holds the figures'
+spectrum and waterfall data card against CPU. The CPU runs that phases 37,
+68 and 70 hold the card against are computed from the start in one
+spawned process of their own (`CpuReferences`), stopped when phase 70 has
+read them. Each phase prints
 at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
@@ -233,12 +255,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import math
+import multiprocessing as mp
 import re
 import subprocess
 import tempfile
+import threading
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -308,8 +334,20 @@ from r4w_tpu_torch.benchmark import WaveformRunner
 from r4w_tpu_torch.pipeline import run_pipeline
 from r4w_tpu_torch.registry import PluginManager, default_registry
 from r4w_tpu_torch.waveforms import base as waveform_base
+from r4w_tpu_torch import entry as entry_module
+from r4w_tpu_torch import mesh, mesh_gates, sandbox, viz
+from r4w_tpu_torch.mesh_gates import GATE, mesh_lora_gate
+from r4w_tpu_torch.native import capi
+from r4w_tpu_torch.registry_survey import POWER_TOL_DB as SURVEY_POWER_TOL_DB
+from r4w_tpu_torch.registry_survey import compare_surveys, registry_survey
 
 REL_TOL = 1e-4  # max|kernel - plain| / max(plain), the JAX package's own bar
+CAPI_IQ_ATOL = 3e-6       # tests/test_capi.py: the C modulators against complex64 IQ
+CAPI_FFT_REL = 1e-9       # tests/test_capi.py: the C FFT, complex128 on both sides
+CAPI_CHIRP_ATOL = 2e-6    # tests/test_capi.py: the C chirps against complex64 chirps
+SANDBOX_TIMEOUT_S = 60
+SANDBOX_MEMORY_MB = 256   # tests/test_timing_sandbox.py's L3 limit
+VIZ_DB_TOL = 1e-4
 WATERFALL_BARS_DB = {"sf7": -8.0, "sf8": -12.0, "sf9": -14.0, "sf10": -16.0,
                      "sf11": -20.0, "sf12": -22.0}
 WATERFALL_SLACK_DB = 2.0  # one step of the sweep's SNR grid
@@ -2600,7 +2638,7 @@ def gate_decisions(gate: dict) -> dict:
             "mlse": c["mlse_vs_dfe"]["decisions"], "dfe": c["mlse_vs_dfe"]["dfe_decisions"]}
 
 
-def drive_receiver_gate(dev: torch.device) -> dict:
+def drive_receiver_gate(dev: torch.device, refs: "CpuReferences") -> dict:
     """Phase 37: `composed_receiver_gate()` on the card at the reference's
     sizes and at the 1,500-byte packet, each with the counts set to 0 just
     before it and read just after: every bar met (the reference's four at
@@ -2619,8 +2657,8 @@ def drive_receiver_gate(dev: torch.device) -> dict:
         counts = kernel_counts()
         if not gate["ok"] or counts != want:
             raise AssertionError(f"receiver gate {label}: ok {gate['ok']}, launches {counts}")
-        cpu = composed_receiver_gate("cpu", n_bits)
-        card_dec, cpu_dec = gate_decisions(gate), gate_decisions(cpu)
+        cpu = refs.get(("receiver", n_bits))
+        card_dec, cpu_dec = gate_decisions(gate), cpu["decisions"]
         for case, value in card_dec.items():
             pairs = value.items() if isinstance(value, dict) else [("", value)]
             for key, got in pairs:
@@ -2641,10 +2679,15 @@ def drive_receiver_gate(dev: torch.device) -> dict:
               f"launches {json.dumps(counts)}; {s['total']:.3f} s end to end, pfb_clock_sync "
               f"{s['pfb_clock_sync']:.3f} s ({100 * s['share']['pfb_clock_sync']:.1f}%), MLSE "
               f"{s['mlse']:.3f} s ({100 * s['share']['mlse']:.1f}%), DFE {s['dfe']:.3f} s "
-              f"({100 * s['share']['dfe']:.1f}%); CPU run {cpu['seconds']['total']:.3f} s")
-        out[label] = {"launches": counts, "seconds": s, "cpu_seconds": cpu["seconds"]["total"]}
-    prof = breakdown(lambda: composed_receiver_gate(dev, RECEIVER_INFO_BITS), warm=False)
-    phase("37 receiver profile", f"one reference-size gate under the profiler: "
+              f"({100 * s['share']['dfe']:.1f}%); CPU run {cpu['total_s']:.3f} s (in the "
+              f"background process)")
+        out[label] = {"launches": counts, "seconds": s, "cpu_seconds": cpu["total_s"]}
+    # the first case only: the whole gate's ~500,000 launches took the
+    # profiler ~78 s of host time
+    bits = np.random.default_rng(7).integers(0, 2, RECEIVER_INFO_BITS).astype(np.int32)
+    prof = breakdown(lambda: entry_module._qpsk_link(bits, dev), warm=False)
+    phase("37 receiver profile", f"the reference-size gate's QPSK link (its first case: "
+          f"shaping, PFB timing recovery, phase, the hypothesis decode) under the profiler: "
           f"{prof['device_events']} launches, busy {prof['busy_ms']:.3f} ms of a "
           f"{prof['span_ms']:.3f} ms span, idle share {prof['idle_share']:.4f}; largest "
           + json.dumps(prof["top_ms"]))
@@ -4283,12 +4326,12 @@ def check_host_layer(dev: torch.device) -> dict:
     return {"schedule_card_s": card_s, "schedule_cpu_s": cpu_s, "accel_rel": accel_errs}
 
 
-def time_dechirp_rows(rows: int, dev: torch.device, key: str, label: str) -> dict:
-    """The dechirp kernel at (rows, 128), a LoRa-SF7 demodulation's shape,
-    against its plain version within 1e-4, kernel and plain queued in
-    turns, cuFFT's transform alone as the library yardstick, beside the
-    bound; keyed ``*_{key}``."""
-    params = lora.LoRaParams(sf=7)
+def time_dechirp_rows(rows: int, dev: torch.device, key: str, label: str, sf: int = 7) -> dict:
+    """The dechirp kernel at (rows, 2^sf), a LoRa demodulation's shape
+    (SF7's 128 points unless named), against its plain version within 1e-4,
+    kernel and plain queued in turns, cuFFT's transform alone as the library
+    yardstick, beside the bound; keyed ``*_{key}``."""
+    params = lora.LoRaParams(sf=sf)
     k = params.chips_per_symbol
     gen = torch.Generator(device=dev).manual_seed(rows)
     syms = torch.randint(0, k, (rows,), generator=gen, device=dev, dtype=torch.int32)
@@ -4358,6 +4401,335 @@ def time_host_layer_kernels(dev: torch.device, lab: dict, graph: dict) -> dict:
     return out
 
 
+def _cpu_reference_worker(conn, jobs) -> None:
+    """The CPU halves of phases 37, 68 and 70, in a spawned process (no
+    CUDA): each job's result is sent as it completes, or the traceback."""
+    try:
+        for job in jobs:
+            t0 = time.perf_counter()
+            if job[0] == "receiver":
+                gate = composed_receiver_gate("cpu", job[1])
+                value = {"decisions": gate_decisions(gate), "total_s": gate["seconds"]["total"]}
+            elif job[0] == "survey":
+                value = registry_survey("cpu")
+            else:
+                run = mesh_gates.run_mesh(GATE, "cpu")
+                value = {"outcome": mesh_gates.outcome(run), "air_seconds": run["air_seconds"],
+                         "seconds": run["seconds"]}
+            value["wall_s"] = time.perf_counter() - t0
+            conn.send((job, value))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class CpuReferences:
+    """The CPU runs that phases 37, 68 and 70 hold the card against,
+    computed from the start of the script in one spawned process while the
+    card runs the phases before them (they depend on nothing the card
+    computes). A reader thread takes each result off the pipe as it comes,
+    so the process never blocks on a full pipe. The process is a daemon and
+    is stopped by `close`."""
+
+    JOBS = (("receiver", RECEIVER_INFO_BITS), ("receiver", PACKET_INFO_BITS), ("survey",),
+            ("mesh",))
+
+    def __init__(self):
+        ctx = mp.get_context("spawn")
+        rx, tx = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_cpu_reference_worker, args=(tx, self.JOBS), daemon=True)
+        self.proc.start()
+        tx.close()
+        self.results: dict = {}
+        self.arrived = threading.Condition()
+        self.reader = threading.Thread(target=self._read, args=(rx,), daemon=True)
+        self.reader.start()
+
+    def _read(self, rx) -> None:
+        while True:
+            try:
+                key, value = rx.recv()
+            except (EOFError, OSError):
+                key, value = "ended", None
+            with self.arrived:
+                self.results[key] = value
+                self.arrived.notify_all()
+            if key in ("error", "ended"):
+                return
+
+    def get(self, job: tuple, timeout_s: float = 1200.0) -> dict:
+        with self.arrived:
+            ready = self.arrived.wait_for(
+                lambda: job in self.results or "error" in self.results
+                or "ended" in self.results, timeout_s)
+            if job in self.results:
+                return self.results[job]
+        if not ready:
+            raise AssertionError(f"the CPU reference {job} did not arrive in {timeout_s} s")
+        if "error" in self.results:
+            raise AssertionError(f"the CPU reference process failed:\n{self.results['error']}")
+        raise AssertionError(f"the CPU reference process ended before {job} (exit code "
+                             f"{self.proc.exitcode})")
+
+    def close(self) -> None:
+        self.proc.terminate()
+        self.proc.join(10)
+        self.reader.join(10)
+
+
+def drive_registry_survey(dev: torch.device, refs: "CpuReferences") -> dict:
+    """Phase 68: every registry block (523) and the pipeline's demodulator
+    through `run_pipeline` with its schema's defaults, on the card with the
+    counts set to 0 just before it and read just after (the dechirp kernel
+    at least once, by the demodulator), then the same graphs on the CPU:
+    the erring blocks and their errors' causes equal on both, every block
+    that runs on both with the same shape and dtype and a power within 0.01
+    dB, or exempt by name (`registry_survey.EXEMPT`)."""
+    zero_launch_counts()
+    card = registry_survey(dev)
+    counts = fm_counts()
+    cpu = refs.get(("survey",))
+    verdict = compare_surveys(card, cpu)
+    slow = sorted(((v["seconds"], k) for k, v in card["blocks"].items()), reverse=True)[:8]
+    phase("68 registry survey", f"{len(card['blocks'])} nodes (523 blocks and waveform_rx): on "
+          f"{dev} {len(card['ok'])} ok, {len(card['errors'])} erring in {card['seconds']:.2f} s; "
+          f"on the CPU (the background process) {len(cpu['ok'])} ok, {len(cpu['errors'])} "
+          f"erring in {cpu['seconds']:.2f} s; error sets equal {not (verdict['card_only'] or verdict['cpu_only'])}; card-only "
+          f"{json.dumps(verdict['card_only'])}; CPU-only {json.dumps(verdict['cpu_only'])}; "
+          f"erring on both for another cause {json.dumps(verdict['differing_errors'])}; "
+          f"mismatches {json.dumps(verdict['mismatch'])}; exempt {json.dumps(verdict['exempt'])}; "
+          f"worst power |Δ| {verdict['worst_power_db']:.3g} dB at {verdict['worst_at']} (< "
+          f"{SURVEY_POWER_TOL_DB}); launches {json.dumps(counts)}; slowest on the card "
+          + ", ".join(f"{k} {t:.2f} s" for t, k in slow))
+    phase("68 registry survey errors", "erring on both (parameters the schema cannot give): "
+          + ", ".join(sorted(set(card["errors"]) & set(cpu["errors"]))))
+    if not verdict["equal"]:
+        raise AssertionError(f"the registry survey: card against CPU {verdict}")
+    if counts["dechirp_power"] < 1:
+        raise AssertionError(f"the survey launched no dechirp kernel: {counts}")
+    return {"launches": counts, "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+            "ok": len(card["ok"]), "errors": len(card["errors"])}
+
+
+def drive_mesh_gate(dev: torch.device) -> dict:
+    """Phase 69: `mesh_lora_gate()`, the 16-node LongFast mesh over the LoRa
+    PHY (SF11, 250 kHz), on the card with the counts set to 0 just before it
+    and read just after: every bar; the dechirp kernel once a round that
+    carried frames (the gate's run and its +10 dB run), no other kernel;
+    deliveries and failures in 2 dB SNR buckets; frames, samples and GB of
+    IQ; the first run's seconds, a warm run's, and one warm round (the
+    busiest) under the profiler."""
+    zero_launch_counts()
+    with CallSpy(lora_modem, "dechirp_power_dispatch") as spy:
+        t0 = time.perf_counter()
+        gate = mesh_lora_gate(dev)
+        gate_s = time.perf_counter() - t0
+    counts = fm_counts()
+    run, high = gate["run"], gate["high"]
+    air_rounds = len(run["sim"].air) + len(high["sim"].air)
+    want = {**dict.fromkeys(counts, 0), "dechirp_power": air_rounds}
+    phase("69 mesh gate", f"{GATE.nodes} nodes, {GATE.preset} (SF{run['sim'].params.sf}, "
+          f"{run['sim'].params.bw_hz / 1e3:.0f} kHz, CR 4/{4 + run['sim'].params.cr}) on {dev}: "
+          f"bars {json.dumps(gate['bars'])}; rounds {run['rounds']}, moved {run['moved']}; "
+          f"{run['frames']} frames ({json.dumps(gate['outcomes'])}), {gate['strong_frames']} on "
+          f"links >= {mesh_gates.STRONG_DB} dB; {run['samples']} samples, {run['iq_gb']:.4f} GB "
+          f"of IQ; payloads {json.dumps(gate['payloads'])}; +10 dB run: moved {high['moved']}, "
+          f"{high['frames']} frames, payloads {json.dumps(gate['high_payloads'])}; the gate's "
+          f"run {run['seconds']:.3f} s (PHY {run['air_seconds']:.3f} s), whole gate {gate_s:.3f} "
+          f"s; launches {json.dumps(counts)} (dechirp one a round with frames: {air_rounds})")
+    phase("69 mesh snr buckets", "link SNR bucket (dB): deliveries/failed "
+          + ", ".join(f"[{edge:g}, {edge + 2:g}) {b['deliveries']}/{b['failed']}"
+                      for edge, b in gate["buckets"].items()))
+    if not gate["ok"]:
+        raise AssertionError(f"the mesh gate failed its bars {gate['bars']}")
+    if counts != want:
+        raise AssertionError(f"the mesh gate launched {counts}, want {want}")
+    warm = mesh_gates.run_mesh(GATE, dev)
+    busiest = max(warm["sim"].air, key=lambda a: a["rows"])
+    sim = warm["sim"]
+    sim.round = busiest["round"]
+    prof = breakdown(lambda: sim._air(busiest["frames"], busiest["snrs"]), warm=False)
+    other = prof["device_events"] - 1
+    phase("69 mesh warm", f"again: {warm['seconds']:.3f} s (first {run['seconds']:.3f} s), PHY "
+          f"{warm['air_seconds']:.3f} s; the busiest round ({busiest['rows']} rows, "
+          f"{busiest['samples']} samples) under the profiler: {prof['device_events']} launches "
+          f"(dechirp 1, {other} others), busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} "
+          f"ms span, idle share {prof['idle_share']:.4f}; largest {json.dumps(prof['top_ms'])}")
+    return {"gate": gate, "launches": counts, "first_s": run["seconds"], "gate_s": gate_s,
+            "warm_s": warm["seconds"], "profile": prof, "dechirp_shapes": sorted(set(spy.shapes))}
+
+
+def check_mesh_card_against_cpu(dev: torch.device, mesh_run: dict,
+                                refs: "CpuReferences") -> dict:
+    """Phase 70: the mesh gate's run on the CPU against the card's (every
+    delivery's outcome and bytes, every status, inbox, the rounds and moved
+    counts equal); the +10 dB run against the PHY-less simulation (the
+    gate's bar, printed); the dechirp kernel at the busiest round's SF11
+    shape against its plain version (1e-4) and cuFFT, timed."""
+    gate = mesh_run["gate"]
+    cpu = refs.get(("mesh",))
+    cpu_s = cpu["seconds"]
+    verdict = mesh_gates.compare_runs(mesh_gates.outcome(gate["run"]), cpu["outcome"])
+    phase("70 mesh card vs cpu", f"the gate's run on the CPU (the background process) in "
+          f"{cpu_s:.2f} s (PHY {cpu['air_seconds']:.2f} s): {json.dumps(verdict)}; "
+          f"+10 dB run equals the PHY-less simulation {gate['bars']['high_snr_equals_no_phy']} "
+          f"(status and inboxes of {GATE.nodes} nodes)")
+    if not verdict["equal"]:
+        raise AssertionError(f"the mesh gate card vs CPU: {verdict}")
+    rows = max(shape[0] for shape in mesh_run["dechirp_shapes"])
+    timing = time_dechirp_rows(rows, dev, "mesh_sf11", "70 mesh dechirp",
+                               sf=GATE.lora_params().sf)
+    return {"cpu_s": cpu_s, "dechirp_power": timing}
+
+
+def _mesh_packet_roundtrip() -> tuple:
+    """A host callable for the sandbox: a mesh packet through its wire bytes."""
+    pkt = mesh.MeshPacket(src=3, dst=12, packet_id=0x30001, want_ack=True, payload=b"sandboxed")
+    back = mesh.MeshPacket.decode(pkt.encode())
+    return back.src, back.dst, back.packet_id, back.payload
+
+
+def _touch_card() -> float:
+    return float(torch.ones(4, device="cuda").sum())
+
+
+def check_capi(dev: torch.device) -> dict:
+    """Phase 71: the C API built from the checkout's byte copies (g++ -O2,
+    into build/), its BPSK, QPSK and LoRa-SF7 modulators against the port's
+    on the card (3e-6), each demodulator reading the other's IQ back to the
+    payload, its FFT against torch.fft.fft on the card (complex128, 1e-9
+    relative), its chirps against the port's on the card, and
+    examples/11_capi_demo.c compiled against the port's header and run."""
+    t0 = time.perf_counter()
+    if capi.get_lib() is None:
+        raise AssertionError(f"the C API did not build: {capi.build_error()}")
+    build_s = time.perf_counter() - t0
+    errs = {}
+    for name, make in (("BPSK", lambda: capi.CWaveform.bpsk(8000.0, 1000.0)),
+                       ("QPSK", lambda: capi.CWaveform.qpsk(8000.0, 1000.0))):
+        data = bytes(range(0, 256, 9))
+        card = create_waveform(name, 8000.0, dev).modulate(data)
+        wf = make()
+        got = wf.modulate(data)
+        errs[name] = float(np.max(np.abs(got - card.cpu().numpy())))
+        if not (card.device.type == dev.type and errs[name] <= CAPI_IQ_ATOL
+                and wf.demodulate(card) == data):
+            raise AssertionError(f"C API {name}: max|Δ| {errs[name]:.3g}, or the C demodulator "
+                                 f"misread the card's IQ")
+    params = lora.LoRaParams(sf=7, bw_hz=125_000)
+    payload = bytes(range(7, 7 + 40))
+    tx = lora_modem.modulate(params, torch.tensor(list(payload), dtype=torch.int32, device=dev),
+                             include_preamble=True, device=dev)
+    c_lora = capi.CWaveform.lora(7, 125_000, 125_000.0)
+    c_iq = c_lora.modulate(payload)
+    errs["LoRa-SF7"] = float(np.max(np.abs(c_iq - tx.cpu().numpy())))
+    pre = params.n_preamble_samples()
+    c_reads_card = c_lora.demodulate(tx[pre:])[: len(payload)] == payload
+    card_res = lora_modem.demodulate(params, torch.from_numpy(c_iq[pre:].astype(np.complex64)).to(dev))
+    card_reads_c = bytes(card_res.payload.cpu().numpy().astype(np.uint8).tolist())[: len(payload)] \
+        == payload
+    if not (errs["LoRa-SF7"] <= CAPI_IQ_ATOL and c_reads_card and card_reads_c):
+        raise AssertionError(f"C API LoRa: max|Δ| {errs['LoRa-SF7']:.3g}, C reads card "
+                             f"{c_reads_card}, card reads C {card_reads_c}")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    x = torch.complex(torch.randn(4096, generator=gen, device=dev, dtype=torch.float64),
+                      torch.randn(4096, generator=gen, device=dev, dtype=torch.float64))
+    want = torch.fft.fft(x).cpu().numpy()
+    fft_rel = float(np.max(np.abs(capi.fft_forward(x) - want)) / np.max(np.abs(want)))
+    cc = capi.CChirp(7, 125_000, 1)
+    chirp_err = max(float(np.max(np.abs(cc.upchirp() - chirp.base_upchirp(params, dev).cpu().numpy()))),
+                    float(np.max(np.abs(cc.downchirp()
+                                        - chirp.base_downchirp(params, dev).cpu().numpy()))))
+    if not (fft_rel <= CAPI_FFT_REL and chirp_err <= CAPI_CHIRP_ATOL):
+        raise AssertionError(f"C API FFT {fft_rel:.3g} (<= {CAPI_FFT_REL}), chirps "
+                             f"{chirp_err:.3g} (<= {CAPI_CHIRP_ATOL})")
+    so = capi.library_path()
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = Path(tmp) / "capi_demo"
+        root = Path(__file__).resolve().parent
+        subprocess.run(["gcc", "-O2", "-o", str(exe), str(root / "examples" / "11_capi_demo.c"),
+                        "-I", str(root / "r4w_tpu_torch" / "native"), str(so), "-lm",
+                        f"-Wl,-rpath,{so.parent}"], check=True, capture_output=True, timeout=120)
+        demo = subprocess.run([str(exe)], capture_output=True, text=True, timeout=120)
+    if demo.returncode != 0 or "OK" not in demo.stdout:
+        raise AssertionError(f"examples/11_capi_demo.c: rc {demo.returncode}\n{demo.stdout}\n"
+                             f"{demo.stderr}")
+    phase("71 c api", f"{so.name} built and loaded in {build_s:.2f} s; modulators against the "
+          f"port's on {dev}, max|Δ| {json.dumps(errs)} (<= {CAPI_IQ_ATOL}); the C demodulators "
+          f"read the card's BPSK/QPSK/LoRa IQ back, the card's LoRa demodulator reads the C IQ "
+          f"back; FFT of 4096 complex128 against torch.fft.fft on the card, max|Δ|/max "
+          f"{fft_rel:.3g} (<= {CAPI_FFT_REL}); chirps max|Δ| {chirp_err:.3g}; the C demo "
+          f"compiled against the port's header and printed {demo.stdout.strip().splitlines()[-1]!r}")
+    return {"build_s": build_s, "iq_err": errs, "fft_rel": fft_rel}
+
+
+def check_sandbox(dev: torch.device) -> dict:
+    """Phase 72: the sandbox in this process, which has initialised CUDA:
+    its levels and address space; L1, L2, L3 (seccomp, a 256 MB memory
+    limit) and L7 each run the mesh's packet round trip and return it; a
+    child that touches the card comes back as an error within its timeout;
+    the parent's card still launches the dechirp kernel afterwards."""
+    levels = sandbox.available_levels()
+    vm = sandbox._address_space()
+    want = _mesh_packet_roundtrip()
+    results = {}
+    for level in (1, 2, 3, 7):
+        box = sandbox.Sandbox(sandbox.IsolationLevel(level), timeout_s=SANDBOX_TIMEOUT_S,
+                              memory_limit_mb=SANDBOX_MEMORY_MB)
+        t0 = time.perf_counter()
+        res = box.run(_mesh_packet_roundtrip)
+        results[level] = {"ok": res.ok and res.value == want, "isolation": list(res.isolation),
+                          "seconds": time.perf_counter() - t0, "error": res.error}
+    box = sandbox.Sandbox(sandbox.IsolationLevel.L3_SECCOMP, timeout_s=SANDBOX_TIMEOUT_S,
+                          memory_limit_mb=SANDBOX_MEMORY_MB)
+    t0 = time.perf_counter()
+    res = box.run(_touch_card)
+    card_child_s = time.perf_counter() - t0
+    card_child = {"ok": res.ok, "error": (res.error or "").strip().splitlines()[-1:],
+                  "exit_code": res.exit_code}
+    params = lora.LoRaParams(sf=7)
+    gen = torch.Generator(device=dev).manual_seed(72)
+    x = randn_iq((64, params.chips_per_symbol), gen)
+    down = chirp.base_downchirp(params, dev)
+    before = dechirp_power.launches
+    _, rel = rel_err(dechirp_power_cuda(x, down), dechirp_power(x, down))
+    parent_ok = dechirp_power.launches == before + 1 and rel < REL_TOL
+    phase("72 sandbox", f"after CUDA's initialisation: levels {[int(v) for v in levels]}, VmSize "
+          f"{vm / 2**30:.2f} GiB; the mesh packet round trip at L1/L2/L3/L7: "
+          f"{json.dumps(results)}; a child touching the card: {json.dumps(card_child)} in "
+          f"{card_child_s:.2f} s (timeout {SANDBOX_TIMEOUT_S} s); the parent's card afterwards: "
+          f"one dechirp launch, max|Δ|/max {rel:.3g}")
+    if not all(r["ok"] for r in results.values()):
+        raise AssertionError(f"the sandbox levels: {results}")
+    if card_child["ok"] or not res.error or card_child_s >= SANDBOX_TIMEOUT_S:
+        raise AssertionError(f"a child touching the card: {card_child}, {card_child_s:.2f} s")
+    if not parent_ok:
+        raise AssertionError(f"the parent's card after the sandbox: rel {rel}")
+    return {"vm_bytes": vm, "levels": [int(v) for v in levels], "results": results}
+
+
+def check_viz(dev: torch.device) -> None:
+    """Phase 73: the figures' data for one LoRa-SF7 burst (the survey's
+    255-byte packet) on the card against the CPU within 1e-4 dB: the Welch
+    spectrum and the waterfall. Drawing needs matplotlib."""
+    payload = remote_gates.gate_payload()
+    burst = create_waveform("LoRa-SF7", remote_gates.RATE_HZ, dev).modulate(payload)
+    f_card, spec_card = viz._spectrum_db(burst, remote_gates.RATE_HZ)
+    f_cpu, spec_cpu = viz._spectrum_db(burst.cpu(), remote_gates.RATE_HZ)
+    fall_card, fall_cpu = viz._waterfall_db(burst), viz._waterfall_db(burst.cpu())
+    d_spec = float(np.max(np.abs(spec_card - spec_cpu)))
+    d_fall = float(np.max(np.abs(fall_card - fall_cpu)))
+    drawn = ("drawing not run: matplotlib is not installed"
+             if importlib.util.find_spec("matplotlib") is None else "matplotlib present")
+    phase("73 viz", f"a {burst.shape[-1]}-sample LoRa-SF7 burst on {dev}: spectrum "
+          f"{spec_card.shape} max|Δ| {d_spec:.3g} dB, waterfall {fall_card.shape} max|Δ| "
+          f"{d_fall:.3g} dB against the CPU (<= {VIZ_DB_TOL}); {drawn}")
+    if not (np.array_equal(f_card, f_cpu) and fall_card.shape == fall_cpu.shape
+            and d_spec <= VIZ_DB_TOL and d_fall <= VIZ_DB_TOL):
+        raise AssertionError(f"viz card vs CPU: spectrum {d_spec}, waterfall {d_fall}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4380,6 +4752,8 @@ def main() -> None:
                         if "Used" in line and "registers" in line})
         phase("2 build", f"{path.name}; ptxas: {'; '.join(usage) or 'already built'}")
     phase("2 build", f"{len(built)} libraries in {time.perf_counter() - t0:.2f} s")
+    # the CPU runs of phases 37, 68 and 70, computed meanwhile in a process of their own
+    refs = CpuReferences()
     # A register array indexed by a value the compiler cannot fold goes to
     # local memory; the traceback's step and the FIR's register window must
     # not touch it.
@@ -4605,7 +4979,7 @@ def main() -> None:
     # just before each run and read just after (the FIR kernel twice, each
     # Viterbi kernel once), then the three kernels at the gate's shapes.
     check_slice_card_against_cpu(dev)
-    receiver_run = drive_receiver_gate(dev)
+    receiver_run = drive_receiver_gate(dev, refs)
     receiver_timing = time_receiver_kernels(dev)
 
     # The modem family: every function card against CPU with the packet's
@@ -4689,6 +5063,24 @@ def main() -> None:
                             "launches_block_graph_gate": graph_run["launches"][name]}
                      for name in lab_run["launches"]}
 
+    # The LoRa mesh, the C API, the sandbox and the figures: every registry
+    # block on the card against the CPU (the counts set to 0 just before the
+    # card's survey and read just after); the 16-node LongFast mesh over the
+    # LoRa PHY on the card with the counts set to 0 just before it and read
+    # just after (dechirp once a round), warm, profiled, against the CPU, and
+    # dechirp at its SF11 shape; the C API, the sandbox under CUDA, the
+    # figures' data.
+    survey_run = drive_registry_survey(dev, refs)
+    mesh_run = drive_mesh_gate(dev)
+    mesh_check = check_mesh_card_against_cpu(dev, mesh_run, refs)
+    refs.close()
+    check_capi(dev)
+    check_sandbox(dev)
+    check_viz(dev)
+    for name in host_launches:
+        host_launches[name]["launches_registry_survey"] = survey_run["launches"][name]
+        host_launches[name]["launches_mesh_gate"] = mesh_run["launches"][name]
+
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])
     kernels = [{
@@ -4728,6 +5120,7 @@ def main() -> None:
            for key, value in row.items()},
         **host_launches["dechirp_power"],
         **host_timing["dechirp_power"],
+        **mesh_check["dechirp_power"],
     }]
     for name, line, count in (("viterbi_forward", 403, fwd), ("viterbi_traceback", 479, tb)):
         kernels.append({

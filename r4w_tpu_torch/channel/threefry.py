@@ -149,9 +149,11 @@ def _rotl_tensor(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) & _MASK) | (x >> (32 - d))
 
 
-def threefry2x32_tensor(key: tuple[int, int], x0: torch.Tensor, x1: torch.Tensor):
-    """`threefry2x32` on int64 tensors holding uint32 words."""
-    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+def threefry2x32_tensor(key, x0: torch.Tensor, x1: torch.Tensor):
+    """`threefry2x32` on int64 tensors holding uint32 words. `key` is a pair
+    of ints, or a pair of int64 tensors that broadcast against `x0` (a key
+    an element)."""
+    k0, k1 = (k & _MASK if isinstance(k, torch.Tensor) else int(k) & _MASK for k in key)
     ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -191,14 +193,34 @@ def erfinv_tensor(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * float("inf"), p * x)
 
 
+def _normals(bits: torch.Tensor) -> torch.Tensor:
+    """Standard normals from random words, as `normal` makes them."""
+    f = _unit_floats(bits)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    span = float(np.float32(1.0) - np.float32(lo))
+    u = torch.clamp_min(f * span + lo, lo)
+    return float(np.float32(np.sqrt(2))) * erfinv_tensor(u)
+
+
 def normal_tensor(k: tuple[int, int], shape, device) -> torch.Tensor:
     """`normal` (``jax.random.normal(k, shape, float32)``) made on `device`:
     the bits equal the numpy version's; the normals too but where float64
     log1p of the device's library and the host's round to different
     float32 values (rare)."""
     n = int(np.prod(shape, dtype=np.int64))
-    f = _unit_floats(random_bits_tensor(k, n, device))
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    span = float(np.float32(1.0) - np.float32(lo))
-    u = torch.clamp_min(f * span + lo, lo)
-    return (float(np.float32(np.sqrt(2))) * erfinv_tensor(u)).reshape(tuple(shape))
+    return _normals(random_bits_tensor(k, n, device)).reshape(tuple(shape))
+
+
+def normal_segments(keys, lengths, device) -> torch.Tensor:
+    """``normal_tensor(keys[j], (lengths[j],), device)`` for every j,
+    concatenated, in one pass: an element's word depends only on its key and
+    its index within its own draw (partitionable counters), so each segment
+    takes its key's words at indices 0 .. length - 1."""
+    counts = torch.tensor(lengths, dtype=torch.int64, device=device)
+    k = torch.tensor([[int(a) & _MASK, int(b) & _MASK] for a, b in keys], dtype=torch.int64,
+                     device=device)
+    seg = torch.repeat_interleave(torch.arange(len(lengths), device=device), counts)
+    idx = torch.arange(seg.numel(), dtype=torch.int64, device=device) - (
+        torch.cumsum(counts, 0) - counts)[seg]
+    y0, y1 = threefry2x32_tensor((k[seg, 0], k[seg, 1]), idx >> 32, idx & _MASK)
+    return _normals(y0 ^ y1)

@@ -95,8 +95,14 @@ pilot loops over 4.35 s (`gnss.e1c_tracking`, re-exported here).
 `rf_scene_gate(device)` runs one second of a 30.72 MS/s multi-emitter RF
 scene through the loopback SDR into a triggered SigMF capture and its
 replay, with stream tags, metrics and configuration (`scene_gates`,
-re-exported here). Every entry point runs on the CUDA card unless the
-caller names another device.
+re-exported here). `mesh_lora_gate(device)` floods a 16-node Meshtastic
+``LongFast`` mesh over the LoRa PHY (SF11, 250 kHz), every round's frames
+modulated, put through AWGN at their links' SNRs and demodulated as one
+batch on the card (`mesh_gates`, re-exported here). `registry_survey(device)`
+runs every block of the 523-block registry through the block-graph
+pipeline with its schema's defaults (`registry_survey`, re-exported here).
+Every entry point runs on the CUDA card unless the caller names another
+device.
 """
 
 from __future__ import annotations
@@ -128,6 +134,8 @@ from r4w_tpu_torch.hop_gates import hopping_link_gate, infra_blocks_gate  # noqa
 from r4w_tpu_torch.gnss.e1c_tracking import e1c_pilot_gate  # noqa: F401
 from r4w_tpu_torch.scene_gates import rf_scene_gate  # noqa: F401
 from r4w_tpu_torch.remote_gates import block_graph_gate, remote_lab_gate  # noqa: F401
+from r4w_tpu_torch.mesh_gates import mesh_lora_gate  # noqa: F401
+from r4w_tpu_torch.registry_survey import registry_survey  # noqa: F401
 from r4w_tpu_torch.ops import equalizers, measure, pulse, resample
 from r4w_tpu_torch.ops.filters import fir_filter
 from r4w_tpu_torch.ops.modem import soft_demap_llr

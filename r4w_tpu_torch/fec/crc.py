@@ -61,10 +61,37 @@ def _table(name: str, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_crc_table(name).astype(np.int64)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _table_list(name: str) -> tuple[int, ...]:
+    return tuple(int(v) for v in _crc_table(name))
+
+
+def _crc_host(values: list[int], name: str) -> int:
+    """The table-driven CRC of one byte sequence in Python integers: the
+    same register steps as the tensor loop below."""
+    width, _, init, refin, refout, xorout = CRC_PARAMS[name]
+    table, mask = _table_list(name), (1 << width) - 1
+    reg = _reflect(init, width) if refin else init
+    for byte in values:
+        byte &= 0xFF
+        if refin:
+            reg = ((reg >> 8) ^ table[(reg ^ byte) & 0xFF]) & mask
+        else:
+            reg = ((reg << 8) & mask) ^ table[((reg >> (width - 8)) ^ byte) & 0xFF]
+    if refin != refout:
+        reg = _reflect(reg, width)
+    return reg ^ xorout
+
+
 def crc_compute(data_bytes, name: str = "crc16-ccitt", device=None) -> torch.Tensor:
-    """CRC over (..., N) byte arrays -> (...,) int64 checksums."""
+    """CRC over (..., N) byte arrays -> (...,) int64 checksums. One byte
+    sequence on the CPU (wire bytes on the host) is checksummed in Python
+    integers, which costs microseconds where a loop of tensor steps costs
+    milliseconds; the result is the same."""
     width, _, init, refin, refout, xorout = CRC_PARAMS[name]
     data = to_tensor(data_bytes, device=device).to(torch.int64) & 0xFF
+    if data.dim() == 1 and data.device.type == "cpu":
+        return torch.tensor(_crc_host(data.tolist(), name), dtype=torch.int64)
     table = _table(name, data.device)
     mask = (1 << width) - 1
     reg = torch.full(data.shape[:-1], _reflect(init, width) if refin else init,

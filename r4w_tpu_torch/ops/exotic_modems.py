@@ -405,7 +405,10 @@ def power_quality_classify(x, sample_rate: float, f0: float = 50.0,
                            frame_cycles: int = 1, device=None):
     """Sag/swell/interruption/harmonic event classification per frame
     (power_quality_event_classifier.rs): RMS vs nominal + THD, each
-    frame's harmonics on `device` (default the card)."""
+    frame's harmonics on `device` (default the card). A tensor input is
+    read to the host once."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
     x = np.asarray(x, np.float64)
     frame = int(sample_rate / f0) * frame_cycles
     n_frames = x.shape[0] // frame

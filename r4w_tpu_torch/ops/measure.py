@@ -193,6 +193,10 @@ def welch_psd(x, nperseg: int = 256, overlap: float = 0.5,
     x = to_tensor(x, IQ_DTYPE)
     hop = max(1, int(nperseg * (1.0 - overlap)))
     n_seg = max(1, (x.shape[-1] - nperseg) // hop + 1)
+    if x.shape[-1] < nperseg:
+        # the reference's gather clamps indices past the end: the last
+        # sample repeats to fill the one segment
+        x = torch.cat([x, x[..., -1:].expand(*x.shape[:-1], nperseg - x.shape[-1])], dim=-1)
     w = make_window(window, nperseg, x.device)
     spec = torch.fft.fftshift(torch.fft.fft(_frames(x, nperseg, hop, n_seg) * w, dim=-1),
                               dim=-1)

@@ -37,6 +37,20 @@ def test_crc_matches_reference_on_batched_bytes(name):
     assert int(crc.crc_compute(one, name, device=CPU)) == int(ref_crc.crc_compute(one, name))
 
 
+@pytest.mark.parametrize("name", sorted(crc.CRC_PARAMS))
+def test_crc_host_path_equals_the_tensor_loop(name):
+    """One byte sequence on the CPU takes the Python-integer path; it gives
+    the tensor loop's checksum (a batch of one row) and the reference's."""
+    rng = np.random.default_rng(len(name) + 7)
+    for n in (0, 1, 9, 106, 255):
+        data = rng.integers(0, 256, n).astype(np.int32)
+        got = crc.crc_compute(torch.from_numpy(data), name)
+        assert got.shape == () and got.dtype == torch.int64
+        assert int(got) == int(crc.crc_compute(torch.from_numpy(data[None]), name)[0])
+        if n:
+            assert int(got) == int(np.asarray(ref_crc.crc_compute(data, name)))
+
+
 def test_crc_known_answers_and_edges():
     check = np.frombuffer(CHECK, np.uint8).astype(np.int32)
     assert int(crc.crc_compute(check, "crc16-ccitt", device=CPU)) == 0x29B1

@@ -242,8 +242,12 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.accel, r4w_tpu_torch.block_schema, r4w_tpu_torch.registry\n"
             "import r4w_tpu_torch.waveforms.native_plugin, r4w_tpu_torch.prelude\n"
             "import r4w_tpu_torch.pipeline, r4w_tpu_torch.remote_gates\n"
+            "import r4w_tpu_torch.mesh_proto, r4w_tpu_torch.mesh, r4w_tpu_torch.mesh_meshtastic\n"
+            "import r4w_tpu_torch.mesh_gates, r4w_tpu_torch.registry_survey\n"
+            "import r4w_tpu_torch.sandbox, r4w_tpu_torch.viz, r4w_tpu_torch.native.capi\n"
             "assert len(r4w_tpu_torch.registry.default_registry().list()) == 523\n"
             "assert 'yaml' not in sys.modules\n"
+            "assert 'matplotlib' not in sys.modules and 'cryptography' not in sys.modules\n"
             "assert len(r4w_tpu_torch.waveforms.list_waveforms()) == 50\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'r4w_tpu' or m.startswith('r4w_tpu.') or m == 'triton')\n"
