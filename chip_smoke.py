@@ -239,10 +239,20 @@ modulators, demodulators, FFT and chirps against the port's on the card
 and runs ``examples/11_capi_demo.c``; phase 72 runs the sandbox's levels
 under this CUDA process (a child that touches the card errs within its
 timeout, the parent's card still launches); phase 73 holds the figures'
-spectrum and waterfall data card against CPU. The CPU runs that phases 37,
-68 and 70 hold the card against are computed from the start in one
-spawned process of their own (`CpuReferences`), stopped when phase 70 has
-read them. Each phase prints
+spectrum and waterfall data card against CPU. Then the front ends and the
+multi-device layer: phase 74 runs ``dryrun_multichip(1)``'s five sharded
+patterns in a process of their own under NCCL on the card and under gloo
+on the CPU (results equal), and ``parallel.ber_sweep`` over an NCCL mesh of
+one card at the LoRa sweep's SF7 size, equal to the unsharded sweep;
+phase 75 serves the explorer on 127.0.0.1 on the card (the catalog, PR
+20's block graph through /api/pipeline, the sky view, the live stream's
+waterfall, an agent's TX into it, and the demo round of LoRa-SF12 over the
+nine channel models, each against the CPU); phase 76 runs the CLI's
+commands in-process at a 255-byte LoRa payload and ``python -m
+r4w_tpu_torch simulate`` once, every printed line against the CPU's. The
+CPU runs that phases 37, 61, 68, 70 and 74-76 hold the card against are
+computed in one spawned process of their own (`CpuReferences`), started
+with the script and stopped when phase 76 has read them. Each phase prints
 at least one line; a failed phase raises,
 and the exit code is then non-zero. The second-to-last line is the kernel
 table as JSON, the last line the device record.
@@ -253,18 +263,23 @@ It needs one CUDA card (Hopper, for sm_90a) and nvcc; it has no CPU path.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import functools
 import importlib.util
+import io
 import json
 import math
 import multiprocessing as mp
 import re
 import subprocess
+import sys
 import tempfile
 import threading
 import time
 import traceback
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -340,6 +355,9 @@ from r4w_tpu_torch.mesh_gates import GATE, mesh_lora_gate
 from r4w_tpu_torch.native import capi
 from r4w_tpu_torch.registry_survey import POWER_TOL_DB as SURVEY_POWER_TOL_DB
 from r4w_tpu_torch.registry_survey import compare_surveys, registry_survey
+from r4w_tpu_torch import explorer, frontend_gates, parallel
+from r4w_tpu_torch.analysis import Waterfall
+from r4w_tpu_torch.parallel.dryrun import COMPOSITE_REL_TOL, dryrun_multichip
 
 REL_TOL = 1e-4  # max|kernel - plain| / max(plain), the JAX package's own bar
 CAPI_IQ_ATOL = 3e-6       # tests/test_capi.py: the C modulators against complex64 IQ
@@ -492,6 +510,12 @@ REGISTRY_COUNTS = {"filter": 47, "resampler": 10, "sync": 33, "channel": 12, "me
                    "source": 19, "radar": 42, "math": 97, "modulator": 80, "sink": 19, "fec": 14,
                    "gnss": 6, "demodulator": 25}  # the reference's default_registry()
 GRAPH_LAUNCHES = ("dechirp_power", "first_order_iir", "fir_decimate")  # rx, flt, dec
+MULTI_SWEEP_SEED = 74       # phase 74's sharded and unsharded sweeps
+DRYRUN_PEAK_REL_TOL = 1e-5  # PCPS peaks card against CPU: float32 FFT sums in another order
+STREAM_FS, STREAM_FFT, STREAM_REPS = 250_000.0, 256, 32   # phase 75's live stream
+STREAM_WAIT_S = 30.0
+STREAM_ROW_TOL_DB = 0.1 + 1e-4  # the rows are rounded to 0.1 dB on both sides
+PYTHON_M_TIMEOUT_S = 300
 PROFILED_BATCHES = 10      # phase 64's warm batches under the profiler: one records no events
 RECURSION_STANDS_FOR = ["r4w_tpu/ops/filters.py:225", "r4w_tpu/ops/filters.py:243",
                         "r4w_tpu/ops/filters2.py:365", "r4w_tpu/ops/filters2.py:413",
@@ -4031,7 +4055,7 @@ def time_e1c_viterbi(dev: torch.device, run: dict) -> dict:
     return table
 
 
-def drive_rf_scene(dev: torch.device) -> dict:
+def drive_rf_scene(dev: torch.device, refs: "CpuReferences") -> dict:
     """Phase 61: `rf_scene_gate()` at full width (1 s at 30.72 MS/s in blocks
     of 2^20: five emitters, the loopback simulator's AWGN, the attenuator,
     a triggered 2^16 + 2^23 capture saved as SigMF and replayed, tags,
@@ -4040,8 +4064,9 @@ def drive_rf_scene(dev: torch.device) -> dict:
     stages; no other hand-written kernel), every bar; then warm; one warm
     chain under the profiler; the FIR at the decode's two shapes against
     its plain version, timed queued beside conv1d and its bound; then the
-    whole scene on the CPU against the card (bars, tags, trigger, payload,
-    tone peaks equal; the capture's IQ within SCENE_IQ_TOL of its peak)."""
+    whole scene on the CPU (the background process's run) against the card
+    (bars, tags, trigger, payload, tone peaks equal; the capture's IQ within
+    SCENE_IQ_TOL of its peak)."""
     sg = scene_gates
     zero_launch_counts()
     gate = rf_scene_gate(dev)
@@ -4100,16 +4125,16 @@ def drive_rf_scene(dev: torch.device) -> dict:
         timing.update(time_fir_shape(x, taps, factor, key, f"61 rf scene fir {key}", queued_ms))
         x = fir.fir_decimate_cuda(x, taps.flip(0), factor, zero_state=True)
         rate /= factor
-    t0 = time.perf_counter()
-    cpu = rf_scene_gate("cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu = refs.get(("scene",))
+    cpu_s = cpu["wall_s"]
     same = {k: gate[k] == cpu[k] for k in ("bars", "trigger_block", "payload")}
     same["jammer_tags"] = gate["jammer"]["tags"] == cpu["jammer"]["tags"]
     same["tone_peaks"] = all(gate["tones"][k]["peak_hz"] == cpu["tones"][k]["peak_hz"]
                              for k in gate["tones"])
-    _, iq_rel = rel_err(gate["capture"].cpu(), cpu["capture"])
+    _, iq_rel = rel_err(gate["capture"].cpu(), torch.from_numpy(cpu["capture"]))
     ratio_delta = abs(gate["ratio_db"] - cpu["ratio_db"])
-    phase("61 rf scene card vs cpu", f"the whole scene on the CPU ({cpu_s:.2f} s on the host): "
+    phase("61 rf scene card vs cpu", f"the whole scene on the CPU (the background process, "
+          f"{cpu_s:.2f} s on the host): "
           f"{json.dumps(same)}; capture IQ max|Δ|/max|CPU| {iq_rel:.3g} (< {SCENE_IQ_TOL}); "
           f"tone ratio |Δ| {ratio_delta:.3g} dB")
     if not (all(same.values()) and iq_rel < SCENE_IQ_TOL):
@@ -4402,8 +4427,8 @@ def time_host_layer_kernels(dev: torch.device, lab: dict, graph: dict) -> dict:
 
 
 def _cpu_reference_worker(conn, jobs) -> None:
-    """The CPU halves of phases 37, 68 and 70, in a spawned process (no
-    CUDA): each job's result is sent as it completes, or the traceback."""
+    """The CPU halves of phases 37, 61, 68, 70 and 74-76, in a spawned process
+    (no CUDA): each job's result is sent as it completes, or the traceback."""
     try:
         for job in jobs:
             t0 = time.perf_counter()
@@ -4412,6 +4437,18 @@ def _cpu_reference_worker(conn, jobs) -> None:
                 value = {"decisions": gate_decisions(gate), "total_s": gate["seconds"]["total"]}
             elif job[0] == "survey":
                 value = registry_survey("cpu")
+            elif job[0] == "scene":
+                gate = rf_scene_gate("cpu")
+                value = {k: gate[k] for k in ("bars", "trigger_block", "payload", "jammer",
+                                              "tones", "ratio_db")}
+                value["capture"] = gate["capture"].numpy()
+            elif job[0] == "dryrun":
+                with contextlib.redirect_stdout(io.StringIO()):
+                    value = dryrun_multichip(1, "cpu")
+            elif job[0] == "cli":
+                value = frontend_gates.cli_reference("cpu")
+            elif job[0] == "explorer":
+                value = frontend_gates.explorer_reference("cpu")
             else:
                 run = mesh_gates.run_mesh(GATE, "cpu")
                 value = {"outcome": mesh_gates.outcome(run), "air_seconds": run["air_seconds"],
@@ -4425,7 +4462,7 @@ def _cpu_reference_worker(conn, jobs) -> None:
 
 
 class CpuReferences:
-    """The CPU runs that phases 37, 68 and 70 hold the card against,
+    """The CPU runs that phases 37, 61, 68, 70 and 74-76 hold the card against,
     computed from the start of the script in one spawned process while the
     card runs the phases before them (they depend on nothing the card
     computes). A reader thread takes each result off the pipe as it comes,
@@ -4433,7 +4470,7 @@ class CpuReferences:
     is stopped by `close`."""
 
     JOBS = (("receiver", RECEIVER_INFO_BITS), ("receiver", PACKET_INFO_BITS), ("survey",),
-            ("mesh",))
+            ("mesh",), ("scene",), ("dryrun",), ("explorer",), ("cli",))
 
     def __init__(self):
         ctx = mp.get_context("spawn")
@@ -4728,6 +4765,336 @@ def check_viz(dev: torch.device) -> None:
     if not (np.array_equal(f_card, f_cpu) and fall_card.shape == fall_cpu.shape
             and d_spec <= VIZ_DB_TOL and d_fall <= VIZ_DB_TOL):
         raise AssertionError(f"viz card vs CPU: spectrum {d_spec}, waterfall {d_fall}")
+
+
+def drive_multi_device(dev: torch.device, refs: "CpuReferences") -> dict:
+    """Phase 74: the multi-device layer at world size 1 under NCCL (the
+    card's machine has one card). `dryrun_multichip(1)`'s five patterns in a
+    process of their own on the card and again on the CPU under gloo (the
+    background process's run): the
+    mean BER equal, PRN index 3 the strongest with the peaks within 1e-5,
+    the same Doppler bin, no pipeline errors, the composites within 1e-4 of
+    each other; then `parallel.ber_sweep(mesh=make_mesh(("dp",)))` at the
+    LoRa sweep's SF7 size (512 lanes × 12 SNRs) in this process, with the
+    counts set to 0 just before it and read just after (the dechirp kernel),
+    equal to the unsharded sweep on the same draws. World size 1 shows the
+    collectives' correctness, not their scaling."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    card = dryrun_multichip(1, dev)
+    card_s = time.perf_counter() - t0
+    cpu = refs.get(("dryrun",))
+    cpu_s = cpu["wall_s"]
+    peaks_card, peaks_cpu = np.asarray(card["prn_peaks"]), np.asarray(cpu["prn_peaks"])
+    peak_rel = float(np.max(np.abs(peaks_card - peaks_cpu)) / np.max(peaks_cpu))
+    comp_card = np.asarray(card["composite"]["re"]) + 1j * np.asarray(card["composite"]["im"])
+    comp_cpu = np.asarray(cpu["composite"]["re"]) + 1j * np.asarray(cpu["composite"]["im"])
+    comp_err = float(np.max(np.abs(comp_card - comp_cpu)))
+    scale = float(np.max(np.abs(comp_cpu)))
+    agree = {"mean_ber": card["mean_ber"] == cpu["mean_ber"],
+             "prn": int(np.argmax(peaks_card)) == int(np.argmax(peaks_cpu)) == 3
+             and peak_rel <= DRYRUN_PEAK_REL_TOL,
+             "doppler": card["doppler"]["best"] == cpu["doppler"]["best"],
+             "pipeline": card["pp_errs"] == cpu["pp_errs"] == [0],
+             "composite": comp_err <= COMPOSITE_REL_TOL * max(scale, 1.0)}
+    phase("74 multi-device dryrun", f"on {dev} ({parallel.backend_for(dev)}, a process of its "
+          f"own, {card_s:.2f} s; "
+          f"patterns {json.dumps({k: round(v, 4) for k, v in card['seconds'].items()})} s) and "
+          f"on the CPU (gloo, {cpu_s:.2f} s): mean BER {card['mean_ber']} / {cpu['mean_ber']}, "
+          f"PRN peaks within {peak_rel:.3g} of each other (<= {DRYRUN_PEAK_REL_TOL}), Doppler "
+          f"{card['doppler']['best']} / {cpu['doppler']['best']} Hz, pipeline errors "
+          f"{card['pp_errs']}, composites {comp_err:.3g} apart at scale {scale:.3g}; agree "
+          f"{json.dumps(agree)}")
+    if not all(agree.values()):
+        raise AssertionError(f"dryrun_multichip(1): card against CPU {agree}")
+    params = lora.LoRaParams(sf=7)
+    payload = (torch.arange(SWEEP_PAYLOAD_BYTES, dtype=torch.int32, device=dev)
+               % params.chips_per_symbol)
+    ber_fn = functools.partial(lora.loopback_ber, params)
+    lanes = sweep_lanes(7)
+    mesh = parallel.make_mesh(("dp",), device=dev)
+    try:
+        backend, world = torch.distributed.get_backend(), mesh.size()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        sharded = parallel.ber_sweep(ber_fn, payload, SWEEP_SNRS_DB, n_lanes=lanes,
+                                     seed=MULTI_SWEEP_SEED, mesh=mesh)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        counts = fm_counts()
+        t0 = time.perf_counter()
+        plain = parallel.ber_sweep(ber_fn, payload, SWEEP_SNRS_DB, n_lanes=lanes,
+                                   seed=MULTI_SWEEP_SEED)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        equal = torch.equal(sharded, plain)
+    finally:
+        torch.distributed.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    phase("74 multi-device sweep", f"ber_sweep over a {backend} mesh of {world} on {dev}: "
+          f"{lanes} lanes × {len(SWEEP_SNRS_DB)} SNRs of {SWEEP_PAYLOAD_BYTES} bytes at SF7 in "
+          f"{sharded_s:.3f} s (unsharded {plain_s:.3f} s, first runs, the host's clock); equal to "
+          f"the unsharded sweep {equal}; BER {[round(float(b), 6) for b in sharded.cpu()]}; "
+          f"launches {json.dumps(counts)}; phase {seconds:.1f} s")
+    if not equal or backend != parallel.backend_for(dev) or counts["dechirp_power"] < 1:
+        raise AssertionError(f"the sharded sweep: equal {equal}, backend {backend}, {counts}")
+    return {"launches": counts, "seconds": seconds, "dryrun_card_s": card_s,
+            "dryrun_cpu_s": cpu_s, "sweep_s": sharded_s}
+
+
+def _http_json(url: str, body=None, timeout: float = 300.0):
+    """One request to the explorer: GET without `body`, else POST of `body`
+    (bytes, or an object sent as JSON); the JSON answer."""
+    data = None if body is None else body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _no_error(label: str, answer) -> None:
+    """An explorer answer carries no error: the handler turns an exception
+    into an "error" key and the stream pump into stats.pump_error."""
+    if isinstance(answer, dict) and ("error" in answer
+                                     or "pump_error" in answer.get("stats", {})):
+        raise AssertionError(f"the explorer's {label} answered {answer}")
+
+
+def _stream_rows(url: str, want_rows: int) -> dict:
+    """Poll the live stream until `want_rows` rows exist; the last answer."""
+    deadline = time.perf_counter() + STREAM_WAIT_S
+    while True:
+        out = _http_json(url + "/api/stream/rows?since=0")
+        _no_error("stream rows", out)
+        if out["next"] >= want_rows or time.perf_counter() > deadline:
+            return out
+        time.sleep(0.05)
+
+
+def drive_explorer(dev: torch.device, refs: "CpuReferences") -> dict:
+    """Phase 75: the port's explorer served on 127.0.0.1 at an ephemeral port
+    on the card, every JSON answer free of "error" and "pump_error": the page,
+    the waveforms, the 523-block catalog and the FIR blocks' schemas; phase 65's
+    block graph at the 255-byte LoRa-SF7 burst through /api/pipeline with the
+    counts set to 0 just before it and read just after (dechirp, FIR and
+    recursion), its report against the CPU's (`compare_reports`: power
+    within 0.01 dB, previews within 1e-4); the sky view for both presets at
+    0 and 300 s against the CPU's; the live stream (fs 250 kHz, FFT 256, a
+    QPSK burst of 32 reps) with the waterfall computed on the card, its rows
+    against the CPU's waterfall of the same burst within the JSON's 0.1 dB
+    rounding; an agent's start_tx with target "stream" through /api/remote;
+    and the demo round of LoRa-SF12 with the 255-byte payload over the nine
+    channel models (counts set to 0 before, read after), card = CPU. The
+    drawing of the demo's PNGs needs matplotlib and is not run here."""
+    from r4w_tpu_torch.agent import AgentServer
+
+    t_phase = time.perf_counter()
+    httpd = explorer.serve(port=0, background=True, device=dev)
+    url = "http://%s:%d" % httpd.server_address[:2]
+    cpu = refs.get(("explorer",))
+    try:
+        with urllib.request.urlopen(url + "/", timeout=60) as r:
+            page = r.read()
+        names = _http_json(url + "/api/waveforms")
+        blocks = _http_json(url + "/api/blocks")
+        schemas = _http_json(url + "/api/blocks?schema=1&q=fir")
+        if not (b"r4w-tpu explorer" in page and names == list_waveforms() and len(blocks) == 523
+                and schemas and all("schema" in row for row in schemas)):
+            raise AssertionError(f"the explorer's catalog: {len(names)} waveforms, "
+                                 f"{len(blocks)} blocks, {len(schemas)} schema rows")
+        phase("75 explorer", f"{url} on {dev}: page {len(page)} bytes, {len(names)} waveforms, "
+              f"{len(blocks)} blocks, {len(schemas)} FIR blocks with schemas")
+
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        report = _http_json(url + "/api/pipeline", {"nodes": remote_gates.graph_nodes(),
+                                                    "seed": 0})
+        pipeline_s = time.perf_counter() - t0
+        pipeline_counts = fm_counts()
+        _no_error("pipeline", report)
+        verdict = remote_gates.compare_reports(report, cpu["pipeline"])
+        errors = {k: v["error"] for k, v in report["nodes"].items() if "error" in v}
+        phase("75 explorer pipeline", f"the block graph at the 255-byte LoRa-SF7 burst in "
+              f"{pipeline_s:.3f} s (first, over HTTP): order {report['order']}, rx decoded "
+              f"{report['nodes']['rx'].get('decoded_ok')}, node errors {json.dumps(errors)}; "
+              f"against the CPU: equal {verdict['equal']}, worst power |Δ| "
+              f"{verdict['worst_power_db']:.3g} dB (< {remote_gates.POWER_TOL_DB}), worst preview "
+              f"|Δ| {verdict['worst_preview']:.3g} (< {remote_gates.PREVIEW_TOL}); launches "
+              f"{json.dumps(pipeline_counts)}")
+        missing = [k for k in GRAPH_LAUNCHES if pipeline_counts[k] < 1]
+        if not verdict["equal"] or missing or errors != remote_gates.GRAPH_ERRORS \
+                or report["nodes"]["rx"].get("decoded_ok") is not True:
+            raise AssertionError(f"the explorer's pipeline: {verdict['diffs']}, launches "
+                                 f"{pipeline_counts}, errors {errors}")
+
+        for preset in ("e1c_8prn", "gps_l1ca_6sv"):
+            for t in (0, 300):
+                sky = _http_json(url + f"/api/gnss_sky?preset={preset}&t={t}")
+                _no_error("sky view", sky)
+                if sky != json.loads(json.dumps(explorer.gnss_sky(preset, t, device="cpu"))):
+                    raise AssertionError(f"the sky view {preset} at {t} s differs from the CPU's")
+        phase("75 explorer sky", "both presets at 0 and 300 s equal the CPU's")
+
+        start = _http_json(url + "/api/stream/start", {"fs": STREAM_FS, "fft": STREAM_FFT})
+        _no_error("stream start", start)
+        try:
+            t0 = time.perf_counter()
+            tx = _http_json(url + "/api/stream/tx", {"name": "QPSK", "hex": "CAFE1234",
+                                                     "snr": 15, "reps": STREAM_REPS})
+            _no_error("stream tx", tx)
+            want_rows = tx["samples"] // (16 * STREAM_FFT) * 16
+            rows = _stream_rows(url, want_rows)
+            stream_s = time.perf_counter() - t0
+        finally:
+            stopped = _http_json(url + "/api/stream/stop", {})
+        burst = explorer.stream_burst("QPSK", "CAFE1234", 15.0, STREAM_REPS, STREAM_FS, "cpu")
+        frames = Waterfall(STREAM_FS, STREAM_FFT, hop=STREAM_FFT).compute(
+            torch.from_numpy(burst[: rows["next"] * STREAM_FFT]))
+        got = np.asarray(rows["rows"])
+        want = np.round(frames[rows["next"] - len(got):], 1)
+        row_err = float(np.max(np.abs(got - want))) if got.shape == want.shape else math.inf
+        phase("75 explorer stream", f"a {tx['samples']}-sample QPSK burst in {tx['packets']} "
+              f"packets: {rows['next']} rows of {STREAM_FFT} bins (want {want_rows}) in "
+              f"{stream_s:.3f} s, stats {json.dumps(rows['stats'])}; the last {len(got)} rows "
+              f"against the CPU's waterfall of the burst: max|Δ| {row_err:.3g} dB (<= "
+              f"{STREAM_ROW_TOL_DB}); stopped {stopped}")
+        if rows["next"] != want_rows or not row_err <= STREAM_ROW_TOL_DB \
+                or stopped != {"stopped": True}:
+            raise AssertionError(f"the live stream: {rows['next']} rows, max|Δ| {row_err}")
+
+        agent = AgentServer(port=0, device=dev)
+        agent.serve_in_thread()
+        try:
+            a = {"agent_host": "127.0.0.1", "agent_port": agent.port}
+            pong = _http_json(url + "/api/remote", {**a, "command": "ping"})
+            _http_json(url + "/api/stream/start", {"fs": 125000.0, "fft": 128})
+            try:
+                sent = _http_json(url + "/api/remote", {
+                    **a, "command": "start_tx", "target": "stream", "waveform": "QPSK",
+                    "message": "remote lab", "repeat": True, "pps": 50})
+                remote_rows = _stream_rows(url, 16)
+                halted = _http_json(url + "/api/remote", {**a, "command": "stop_tx"})
+            finally:
+                _http_json(url + "/api/stream/stop", {})
+        finally:
+            agent._running = False
+            agent.join_tx(5.0)
+        phase("75 explorer remote", f"agent ping {pong.get('response')}, start_tx -> stream "
+              f"{json.dumps(sent)}, {remote_rows['next']} rows, stats "
+              f"{json.dumps(remote_rows['stats'])}, stop_tx {halted.get('response')}")
+        if (pong.get("response"), sent.get("response"), halted.get("response")) \
+                != ("pong", "ok", "ok") or remote_rows["next"] < 16:
+            raise AssertionError(f"the remote lab through the explorer: {pong}, {sent}, "
+                                 f"{halted}, {remote_rows['next']} rows")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    demo = frontend_gates.demo_rounds(dev)
+    demo_s = time.perf_counter() - t0
+    demo_counts = fm_counts()
+    verdict = frontend_gates.compare_demo(demo, cpu["demo"])
+    phase("75 explorer demo", f"LoRa-SF12, the 255-byte payload, over the nine channel models "
+          f"on {dev} in {demo_s:.2f} s (first; the CPU's in the background process): decoded "
+          f"{json.dumps({m: r['metrics']['decoded_ok'] for m, r in demo.items()})}; against "
+          f"the CPU equal {verdict['equal']}, worst spectrum |Δ| {verdict['worst_db']:.3g} dB "
+          f"(<= {frontend_gates.DEMO_DB_TOL}), worst waterfall |Δ amplitude| / max "
+          f"{verdict['worst_waterfall_rel']:.3g} (<= {frontend_gates.DEMO_WATERFALL_REL_TOL}; in "
+          f"dB {verdict['worst_waterfall_db']:.3g}, at a sidelobe's rounding), worst float metric "
+          f"{verdict['worst_rel']:.3g} relative; launches {json.dumps(demo_counts)}; "
+          f"{verdict['diffs'][:4]}")
+    if not verdict["equal"] or demo_counts["dechirp_power"] < 1:
+        raise AssertionError(f"the demo rounds: {verdict['diffs']}, launches {demo_counts}")
+    prof = breakdown(lambda: explorer.demo_round(frontend_gates.DEMO_WAVEFORM,
+                                                 frontend_gates.PAYLOAD_HEX, channel="awgn",
+                                                 device=dev))
+    phase("75 explorer demo profile", f"one warm LoRa-SF12 awgn round: {prof['device_events']} "
+          f"launches, busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, idle "
+          f"share {prof['idle_share']:.4f}; largest {json.dumps(prof['top_ms'])}")
+    seconds = time.perf_counter() - t_phase
+    phase("75 explorer seconds", f"{seconds:.1f} s")
+    return {"pipeline_launches": pipeline_counts, "demo_launches": demo_counts,
+            "seconds": seconds, "pipeline_s": pipeline_s, "demo_s": demo_s, "profile": prof}
+
+
+def drive_cli(dev: torch.device, refs: "CpuReferences") -> dict:
+    """Phase 76: the port's command line in-process through `cli.main` with
+    the default device (the card), at a 255-byte LoRa payload: `simulate`
+    of LoRa-SF12 over the nine channel models and of LoRa-SF7, the 2 s
+    `benchmark`, a six-waveform `compare`, files through tx/rx, analyze,
+    record/playback, convert, and the other subcommands
+    (`frontend_gates.cli_runs`), with the counts set to 0 just before them
+    and read just after (dechirp by the LoRa commands, both Viterbi kernels
+    by `compare`); then once ``python -m r4w_tpu_torch simulate`` in a
+    process of its own. Every printed line equal to the CPU's run of the
+    same commands (the background process), but the lines
+    `frontend_gates.compare_cli` names. The subcommands that need PyYAML or
+    matplotlib are listed as not run."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="r4w_cli_card_")
+    frontend_gates.prepare_inputs(workdir)
+    runs = frontend_gates.cli_runs(workdir)
+    marks = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    card = frontend_gates.run_cli_set(runs, dev, workdir,
+                                      on_run=lambda label: marks.append((label, fm_counts())))
+    cli_s = time.perf_counter() - t0
+    total = fm_counts()
+    ends = [c for _, c in marks[1:]] + [total]
+    per_run = {}
+    for (label, before), after in zip(marks, ends):
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if moved:
+            per_run[label] = moved
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "r4w_tpu_torch", "simulate", "-w", "LoRa-SF7",
+                           "--hex", frontend_gates.PAYLOAD_HEX], capture_output=True, text=True,
+                          timeout=PYTHON_M_TIMEOUT_S, cwd=Path(__file__).resolve().parent)
+    python_m_s = time.perf_counter() - t0
+    cpu = refs.get(("cli",))
+    verdict = frontend_gates.compare_cli(card, cpu, runs, workdir, cpu["workdir"])
+    python_m_equal = (proc.returncode == 0
+                      and proc.stdout.splitlines() == cpu["simulate LoRa-SF7"]["lines"])
+    bench = frontend_gates.benchmark_numbers(card["benchmark"]["lines"])
+    for label, _, _ in runs:
+        phase("76 cli", f"{label}: exit {card[label]['code'] if not isinstance(card[label]['code'], str) else 'message'} "
+              f"in {card[label]['seconds']:.3f} s; {' | '.join(card[label]['lines'][:3])[:200]}")
+    phase("76 cli launches", f"{len(runs)} commands on {dev} in {cli_s:.2f} s: launches "
+          f"{json.dumps(total)}; by command {json.dumps(per_run)}")
+    phase("76 cli benchmark", f"LoRa-SF7, 255 bytes, 2 s on {dev}: "
+          f"{bench['msamples_per_s']} Msamples/s, {bench['iterations']} demodulations, latency "
+          f"avg {bench['avg_ms']} ms, p99 {bench['p99_ms']} ms (the host's clock)")
+    phase("76 cli python -m", f"python -m r4w_tpu_torch simulate -w LoRa-SF7 (a process of its "
+          f"own on the card) in {python_m_s:.2f} s: exit {proc.returncode}, lines equal to the "
+          f"CPU's {python_m_equal}; {' | '.join(proc.stdout.splitlines()[-2:])}")
+    phase("76 cli not run", "; ".join(f"{k}: {v}" for k, v in frontend_gates.CLI_NOT_RUN.items()))
+    simulate = ["simulate", "-w", "LoRa-SF12", "--hex", frontend_gates.PAYLOAD_HEX]
+    prof = breakdown(lambda: frontend_gates.run_cli(simulate, dev))
+    wf = create_waveform("LoRa-SF7", 125_000.0, dev)
+    burst = wf.modulate(bytes(range(255)))
+    # one demodulation alone (~40 launches) can record no device events
+    prof_demod = breakdown(lambda: [wf.demodulate(burst) for _ in range(PROFILED_BATCHES)])
+    for label, p in (("simulate LoRa-SF12 awgn", prof),
+                     (f"{PROFILED_BATCHES} of the benchmark's demodulations", prof_demod)):
+        phase("76 cli profile", f"warm, {label}: {p['device_events']} launches, busy "
+              f"{p['busy_ms']:.3f} ms of a {p['span_ms']:.3f} ms span, idle share "
+              f"{p['idle_share']:.4f}; largest {json.dumps(p['top_ms'])}")
+    seconds = time.perf_counter() - t_phase
+    phase("76 cli against cpu", f"every command's lines against the CPU's: equal "
+          f"{verdict['equal']}; files within {verdict['worst_file']:.3g} (<= "
+          f"{frontend_gates.FILE_TOL}); {json.dumps(verdict['diffs'])[:1500]}; phase "
+          f"{seconds:.1f} s")
+    if not (verdict["equal"] and python_m_equal):
+        raise AssertionError(f"the CLI on the card against the CPU: {verdict['diffs']}, "
+                             f"python -m {proc.returncode} {proc.stderr[-2000:]}")
+    if total["dechirp_power"] < 1 or total["viterbi_forward"] < 1 \
+            or total["viterbi_traceback"] < 1:
+        raise AssertionError(f"the CLI launched {total}")
+    return {"launches": total, "per_run": per_run, "seconds": seconds, "cli_s": cli_s,
+            "benchmark": bench, "python_m_s": python_m_s, "profile": prof,
+            "profile_demod": prof_demod}
 
 
 def main() -> None:
@@ -5044,7 +5411,7 @@ def main() -> None:
     # card against CPU; the Viterbi kernels at the E1C I/NAV shape.
     e1c_run = drive_e1c_gate(dev)
     check_e1c_card_against_cpu(dev, e1c_run)
-    scene_run = drive_rf_scene(dev)
+    scene_run = drive_rf_scene(dev, refs)
     e1c_timing = time_e1c_viterbi(dev, e1c_run)
 
     # The block registry, the block-graph pipeline and the remote-lab host
@@ -5073,13 +5440,29 @@ def main() -> None:
     survey_run = drive_registry_survey(dev, refs)
     mesh_run = drive_mesh_gate(dev)
     mesh_check = check_mesh_card_against_cpu(dev, mesh_run, refs)
-    refs.close()
     check_capi(dev)
     check_sandbox(dev)
     check_viz(dev)
     for name in host_launches:
         host_launches[name]["launches_registry_survey"] = survey_run["launches"][name]
         host_launches[name]["launches_mesh_gate"] = mesh_run["launches"][name]
+
+    # The command line, the explorer and the multi-device layer, each part
+    # with the counts set to 0 just before it and read just after: the
+    # sharded LoRa sweep over an NCCL mesh of one card (dechirp) and the
+    # dry run's five patterns; the explorer's pipeline (dechirp, recursion,
+    # FIR) and demo rounds (dechirp) on the card; the CLI's commands
+    # (dechirp by the LoRa commands, both Viterbi kernels by compare).
+    multi_run = drive_multi_device(dev, refs)
+    explorer_run = drive_explorer(dev, refs)
+    cli_run = drive_cli(dev, refs)
+    refs.close()
+    for name in host_launches:
+        host_launches[name]["launches_multi_device_sweep"] = multi_run["launches"][name]
+        host_launches[name]["launches_explorer_pipeline"] = \
+            explorer_run["pipeline_launches"][name]
+        host_launches[name]["launches_explorer_demo"] = explorer_run["demo_launches"][name]
+        host_launches[name]["launches_cli"] = cli_run["launches"][name]
 
     t7 = timings[7]
     bound7, by7 = dechirp_bound(t7["rows"], t7["k"])

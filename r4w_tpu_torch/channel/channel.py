@@ -18,6 +18,7 @@ the device of a tensor input, and put other inputs on the CUDA card.
 from __future__ import annotations
 
 import dataclasses
+from typing import Literal
 
 import numpy as np
 import torch
@@ -103,7 +104,8 @@ def awgn(samples, snr_db, *, generator: torch.Generator | None = None,
     Pass exactly one of `generator` (draws fresh noise of the samples'
     shape on its device), `key` (the reference's noise for that threefry
     key) and `noise` (unit variance per component, broadcasting to the
-    samples).
+    samples; or a function of the samples' shape and device that returns
+    such noise, as a sharded sweep draws a slice of the whole grid's).
     """
     if sum(s is not None for s in (generator, noise, key)) != 1:
         raise ValueError("pass exactly one of generator, key and noise")
@@ -121,6 +123,8 @@ def awgn(samples, snr_db, *, generator: torch.Generator | None = None,
     if noise is None:
         noise = _complex_normal(samples.shape, 1.0, key=key, generator=generator,
                                 device=device)
+    elif callable(noise):
+        noise = noise(samples.shape, device)
     return samples * attenuation + noise.to(device=device, dtype=IQ_DTYPE) * noise_std
 
 
@@ -192,6 +196,12 @@ def block_fading(samples, coherence_samples: int, *, key=None,
     h = _complex_normal((*samples.shape[:-1], n_blocks), INV_SQRT2, key=key,
                         generator=generator, device=samples.device)
     return samples * h.repeat_interleave(coherence_samples, dim=-1)[..., :n]
+
+
+ChannelModelName = Literal[
+    "ideal", "awgn", "awgn_cfo", "multipath", "rayleigh", "rician",
+    "tdl_awgn", "jakes", "freq_selective",
+]
 
 
 @dataclasses.dataclass(frozen=True)

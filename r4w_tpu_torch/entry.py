@@ -101,6 +101,9 @@ modulated, put through AWGN at their links' SNRs and demodulated as one
 batch on the card (`mesh_gates`, re-exported here). `registry_survey(device)`
 runs every block of the 523-block registry through the block-graph
 pipeline with its schema's defaults (`registry_survey`, re-exported here).
+`dryrun_multichip(n, device)` runs the five sharded patterns of
+``__graft_entry__.dryrun_multichip`` over n ranks of `device`, one process a
+rank (`parallel.dryrun`, re-exported here).
 Every entry point runs on the CUDA card unless the caller names another
 device.
 """
@@ -144,6 +147,7 @@ from r4w_tpu_torch.ops.stream_math import digital_down_convert
 from r4w_tpu_torch.ops.sync import _integer_pow
 from r4w_tpu_torch.core.hostio import cis
 from r4w_tpu_torch.parallel import ber_sweep
+from r4w_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: F401
 from r4w_tpu_torch.waveforms import create_waveform, list_waveforms, lora
 from r4w_tpu_torch.waveforms import milfh_waveforms as milfh
 from r4w_tpu_torch.waveforms.iot_waveforms import SPEED_OF_LIGHT

@@ -157,8 +157,13 @@ def plot_time(iq, path: str, title: str = "Waveform",
 def plot_spectrum(iq, path: str, sample_rate: float = 1.0,
                   nfft: int = 1024, title: str = "Spectrum"):
     """Welch PSD in dB (analysis/spectrum.rs + gallery spectra)."""
-    plt = _mpl()
     f, db = _spectrum_db(iq, sample_rate, nfft)
+    return draw_spectrum(f, db, path, sample_rate, title)
+
+
+def draw_spectrum(f, db, path: str, sample_rate: float = 1.0, title: str = "Spectrum"):
+    """The spectrum figure from its data (`_spectrum_db`), on the host."""
+    plt = _mpl()
     fig, ax = plt.subplots(figsize=(7, 2.8))
     _style(ax)
     ax.plot(f / (1e3 if sample_rate > 1 else 1), db, color=SERIES[0],
@@ -174,8 +179,12 @@ def plot_spectrum(iq, path: str, sample_rate: float = 1.0,
 def plot_waterfall(iq, path: str, sample_rate: float = 1.0,
                    nfft: int = 256, title: str = "Waterfall"):
     """Spectrogram, single-hue sequential ramp (GUI streaming view)."""
+    return draw_waterfall(_waterfall_db(iq, nfft), path, sample_rate, title)
+
+
+def draw_waterfall(db, path: str, sample_rate: float = 1.0, title: str = "Waterfall"):
+    """The waterfall figure from its data (`_waterfall_db`), on the host."""
     plt = _mpl()
-    db = _waterfall_db(iq, nfft)
     n_frames = db.shape[0]
     fig, ax = plt.subplots(figsize=(6, 3.4))
     _style(ax)

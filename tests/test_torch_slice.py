@@ -245,6 +245,11 @@ def test_import_leaves_jax_out():
             "import r4w_tpu_torch.mesh_proto, r4w_tpu_torch.mesh, r4w_tpu_torch.mesh_meshtastic\n"
             "import r4w_tpu_torch.mesh_gates, r4w_tpu_torch.registry_survey\n"
             "import r4w_tpu_torch.sandbox, r4w_tpu_torch.viz, r4w_tpu_torch.native.capi\n"
+            "import r4w_tpu_torch.cli, r4w_tpu_torch.explorer, r4w_tpu_torch.parallel.dryrun\n"
+            "import r4w_tpu_torch.channel.channel\n"
+            "assert r4w_tpu_torch.entry.dryrun_multichip is r4w_tpu_torch.parallel.dryrun.dryrun_multichip\n"
+            "assert r4w_tpu_torch.parallel.make_mesh and r4w_tpu_torch.parallel.shard_map_sum\n"
+            "assert r4w_tpu_torch.channel.channel.ChannelModelName\n"
             "assert len(r4w_tpu_torch.registry.default_registry().list()) == 523\n"
             "assert 'yaml' not in sys.modules\n"
             "assert 'matplotlib' not in sys.modules and 'cryptography' not in sys.modules\n"
