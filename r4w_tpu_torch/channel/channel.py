@@ -26,6 +26,7 @@ import torch
 from r4w_tpu_torch.channel import threefry
 from r4w_tpu_torch.core.hostio import cis
 from r4w_tpu_torch.core.types import IQ_DTYPE, REAL_DTYPE, real_scalar, resolve_device, to_tensor
+from r4w_tpu_torch.observe.spans import traced
 
 # float32 constants as the reference rounds them, held as Python floats (exact)
 TWO_PI = float(np.float32(2.0 * np.pi))                              # `2.0 * jnp.pi`
@@ -91,6 +92,7 @@ def _complex_normal(shape, std, *, key=None, generator: torch.Generator | None =
     return torch.complex(re * std, im * std)
 
 
+@traced("channel.awgn", lambda rx, *_, **__: {"samples": rx.numel()})
 def awgn(samples, snr_db, *, generator: torch.Generator | None = None,
          noise: torch.Tensor | None = None, key=None, path_loss_db=0.0,
          measured_power=None) -> torch.Tensor:

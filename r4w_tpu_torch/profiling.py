@@ -66,9 +66,17 @@ def breakdown(fn, warm: bool = True) -> dict:
         torch.cuda.synchronize()
     # the raw device events, not prof.events(): building those event trees
     # takes minutes at a step loop's hundreds of thousands of launches
-    events = [e for e in prof.profiler.kineto_results.events()
+    return device_summary(prof.profiler.kineto_results.events())
+
+
+def device_summary(events) -> dict:
+    """Busy time, span, idle share, count and milliseconds by name of the
+    device work among Kineto events. A ``record_function`` range leaves a
+    device-side user annotation over the kernels it launched, which is no
+    work of its own: those are left out with the allocator's records."""
+    events = [e for e in events
               if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()
-              and e.name() not in MEMORY_EVENTS]
+              and not e.is_user_annotation() and e.name() not in MEMORY_EVENTS]
     if not events:
         raise RuntimeError("the profiler recorded no device events")
     spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events)
